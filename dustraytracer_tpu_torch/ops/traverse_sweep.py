@@ -1,0 +1,267 @@
+"""Cluster-BVH traversal: the CUDA kernel and its plain PyTorch twin
+(port of ops/traverse_sweep.py).
+
+`traverse_cluster_sweep` launches `csrc/traverse_sweep.cu` on CUDA
+tensors and runs `traverse_cluster_sweep_reference` on CPU tensors; any
+other device raises. Both follow the same per-ray contract: walk the
+pre-order threading of the ray's own direction octant, closest hit
+(smallest t, ties to the lowest triangle id, strict improvement only) or
+any hit, with a per-ray initial t (`t_max`). They return detached
+{"hit_idx" i32 (-1 = miss), "t" f32, "visits" i32} tensors: traversal is
+a discrete selector with no gradient.
+
+The TPU kernel's per-tile work counters (exec_windows, exec_leafs) and
+in-kernel attribute emission (emit_attrs) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dustraytracer_tpu_torch.accel.cluster import ClusterBvh
+
+BIG = 3.4e38
+_NO_ID = 2 ** 30
+
+# kernel launches since import (or since a caller reset it); the twin
+# never counts
+LAUNCHES = 0
+
+
+def _octant(d: torch.Tensor) -> torch.Tensor:
+    """bit2 = x<0, bit1 = y<0, bit0 = z<0 (ray_sort_key's leading bits)."""
+    return ((d[:, 0] < 0).to(torch.int64) * 4
+            + (d[:, 1] < 0).to(torch.int64) * 2
+            + (d[:, 2] < 0).to(torch.int64))
+
+
+def _oct_tables(cb: ClusterBvh):
+    if cb.oct_min is None:
+        raise ValueError("ClusterBvh has no octant threadings (oct_*)")
+    m = cb.n_nodes
+    return (cb.oct_min[:, :m].reshape(-1, 3), cb.oct_max[:, :m].reshape(-1, 3),
+            cb.oct_skip[:, :m].reshape(-1).to(torch.int64),
+            cb.oct_cluster[:, :m].reshape(-1).to(torch.int64))
+
+
+def _check_rays(cb: ClusterBvh, origin, direction):
+    for name, x in (("origin", origin), ("direction", direction)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dim() != 2 or x.shape[1] != 3:
+            raise ValueError(f"{name} must be (N, 3), got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if origin.shape != direction.shape:
+        raise ValueError("origin and direction shapes differ: "
+                         f"{tuple(origin.shape)} vs {tuple(direction.shape)}")
+    if origin.device != direction.device:
+        raise ValueError("origin and direction are on different devices")
+    if cb.device != origin.device:
+        raise ValueError(f"scene tables on {cb.device}, rays on "
+                         f"{origin.device}")
+
+
+def _t_init(t_max, n: int, device) -> torch.Tensor:
+    if t_max is None:
+        return torch.full((n,), BIG, dtype=torch.float32, device=device)
+    t = torch.as_tensor(t_max, dtype=torch.float32, device=device)
+    if t.dim() > 1 or (t.dim() == 1 and t.shape[0] != n):
+        raise ValueError(f"t_max must be a scalar or (N,), got "
+                         f"{tuple(t.shape)}")
+    return torch.broadcast_to(t, (n,)).contiguous()
+
+
+@torch.no_grad()
+def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
+                                     anyhit: bool = False, t_max=None):
+    """Plain PyTorch twin of the CUDA kernel: a lockstep per-lane walk.
+
+    Every lane holds its own node pointer into its octant's threading;
+    each step gathers the node rows of the live lanes, slab-tests them,
+    and runs a K-wide Möller–Trumbore on the (n_leaf, K) cluster rows of
+    the lanes that entered a leaf. Operations are in the kernel's order,
+    one rounding each, so on the card the two agree bit for bit."""
+    _check_rays(cb, origin, direction)
+    n = origin.shape[0]
+    dev = origin.device
+    box_lo, box_hi, skip_t, clus_t = _oct_tables(cb)
+    m = cb.n_nodes
+    k = cb.k
+
+    hit_t = _t_init(t_max, n, dev).clone()
+    hit_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    lanes = torch.arange(n, device=dev)
+    node = torch.zeros((n,), dtype=torch.int64, device=dev)
+    base = _octant(direction) * m
+    ox, oy, oz = origin[:, 0], origin[:, 1], origin[:, 2]
+    dx, dy, dz = direction[:, 0], direction[:, 1], direction[:, 2]
+    inv_x, inv_y, inv_z = 1.0 / dx, 1.0 / dy, 1.0 / dz
+
+    for _ in range(m + 4):  # pointers only move forward: <= m steps
+        if not lanes.numel():
+            break
+        row = base[lanes] + node
+        lo, hi = box_lo[row], box_hi[row]
+        skip, cluster = skip_t[row], clus_t[row]
+        visits[lanes] += 1
+        lox, loy, loz = ox[lanes], oy[lanes], oz[lanes]
+        ix, iy, iz = inv_x[lanes], inv_y[lanes], inv_z[lanes]
+        tx0 = (lo[:, 0] - lox) * ix
+        tx1 = (hi[:, 0] - lox) * ix
+        ty0 = (lo[:, 1] - loy) * iy
+        ty1 = (hi[:, 1] - loy) * iy
+        tz0 = (lo[:, 2] - loz) * iz
+        tz1 = (hi[:, 2] - loz) * iz
+        t_lo = torch.maximum(torch.maximum(torch.fmin(tx0, tx1),
+                                           torch.fmin(ty0, ty1)),
+                             torch.fmin(tz0, tz1))
+        t_hi = torch.minimum(torch.minimum(torch.fmax(tx0, tx1),
+                                           torch.fmax(ty0, ty1)),
+                             torch.fmax(tz0, tz1))
+        t_enter = torch.clamp_min(t_lo, 0.0)
+        cur_t = hit_t[lanes]
+        enter = (t_enter <= t_hi) & (t_hi >= 0.0) & (t_enter < cur_t)
+        is_leaf = cluster >= 0
+        nxt = torch.where(enter & ~is_leaf, node + 1, skip)
+
+        at_leaf = torch.nonzero(enter & is_leaf).squeeze(1)
+        if at_leaf.numel():
+            ll = lanes[at_leaf]
+            cl = cluster[at_leaf]
+            v0, e1, e2 = cb.v0[cl], cb.e1[cl], cb.e2[cl]  # (L, K, 3)
+            tri_id = cb.tri_idx[cl]                        # (L, K)
+            rx, ry, rz = (dx[ll][:, None], dy[ll][:, None], dz[ll][:, None])
+            sx, sy, sz = (ox[ll][:, None], oy[ll][:, None], oz[ll][:, None])
+            e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
+            e2x, e2y, e2z = e2[..., 0], e2[..., 1], e2[..., 2]
+            px = ry * e2z - rz * e2y
+            py = rz * e2x - rx * e2z
+            pz = rx * e2y - ry * e2x
+            det = e1x * px + e1y * py + e1z * pz
+            par = det.abs() < 1e-6
+            inv_det = 1.0 / torch.where(par, torch.ones_like(det), det)
+            tvx = sx - v0[..., 0]
+            tvy = sy - v0[..., 1]
+            tvz = sz - v0[..., 2]
+            u = inv_det * (tvx * px + tvy * py + tvz * pz)
+            qx = tvy * e1z - tvz * e1y
+            qy = tvz * e1x - tvx * e1z
+            qz = tvx * e1y - tvy * e1x
+            v = inv_det * (rx * qx + ry * qy + rz * qz)
+            tt = inv_det * (e2x * qx + e2y * qy + e2z * qz)
+            leaf_t = cur_t[at_leaf][:, None]
+            valid = (~par) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) \
+                & (u + v <= 1.0) & (tt > 1e-6) & (tri_id >= 0) & (tt < leaf_t)
+            t_masked = torch.where(valid, tt, BIG)
+            best_t = t_masked.amin(dim=1)
+            is_best = valid & (t_masked <= best_t[:, None])
+            best_id = torch.where(is_best, tri_id, _NO_ID).amin(dim=1)
+            improve = (best_t < leaf_t[:, 0]) & (best_id < _NO_ID)
+            won = at_leaf[improve]
+            hit_t[lanes[won]] = best_t[improve]
+            hit_idx[lanes[won]] = best_id[improve]
+            if anyhit:
+                nxt[won] = -1
+
+        node = nxt
+        live = nxt >= 0
+        lanes, node = lanes[live], node[live]
+
+    return {"hit_idx": hit_idx, "t": hit_t, "visits": visits}
+
+
+def load_kernel():
+    """Load the kernel library, declaring every entry's C signature."""
+    from dustraytracer_tpu_torch.ops.cuda_build import load_library
+
+    rec = load_library("traverse_sweep")
+    lib = rec["lib"]
+    if not getattr(lib, "_drt_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.drt_traverse_sweep.argtypes = [p, p, p, i, p, i, p, i, i,
+                                           p, p, p, p]
+        lib.drt_traverse_sweep.restype = ctypes.c_int
+        lib.drt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.drt_cuda_error_string.restype = ctypes.c_char_p
+        lib._drt_bound = True
+    return lib
+
+
+def device_tables(cb: ClusterBvh):
+    """The kernel's packed tables for `cb`, built once per device:
+    nodes (8, m, 2, 4) f32 [min.xyz | skip], [max.xyz | cluster] and
+    triangles (C, K, 3, 4) f32 [v0.xyz | id], [e1.xyz | 0], [e2.xyz | 0],
+    the ints stored bit for bit in the float lanes."""
+    key = str(cb.device)
+    if key not in cb.device_tables:
+        if cb.oct_min is None:
+            raise ValueError("ClusterBvh has no octant threadings (oct_*)")
+        m = cb.n_nodes
+        nodes = torch.zeros((8, m, 2, 4), dtype=torch.float32,
+                            device=cb.device)
+        nodes[:, :, 0, :3] = cb.oct_min[:, :m]
+        nodes[:, :, 1, :3] = cb.oct_max[:, :m]
+        nodes.view(torch.int32)[:, :, 0, 3] = cb.oct_skip[:, :m]
+        nodes.view(torch.int32)[:, :, 1, 3] = cb.oct_cluster[:, :m]
+        c, k = cb.v0.shape[0], cb.v0.shape[1]
+        tris = torch.zeros((c, k, 3, 4), dtype=torch.float32,
+                           device=cb.device)
+        tris[:, :, 0, :3] = cb.v0
+        tris[:, :, 1, :3] = cb.e1
+        tris[:, :, 2, :3] = cb.e2
+        tris.view(torch.int32)[:, :, 0, 3] = cb.tri_idx
+        cb.device_tables[key] = (nodes.contiguous(), tris.contiguous())
+    return cb.device_tables[key]
+
+
+@torch.no_grad()
+def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max):
+    global LAUNCHES
+    n = origin.shape[0]
+    dev = origin.device
+    t0 = _t_init(t_max, n, dev)
+    hit_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return {"hit_idx": hit_idx, "t": t0, "visits": visits}
+    nodes, tris = device_tables(cb)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    lib = load_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.drt_traverse_sweep(
+            origin.data_ptr(), direction.data_ptr(), t0.data_ptr(), n,
+            nodes.data_ptr(), cb.n_nodes, tris.data_ptr(), cb.k,
+            1 if anyhit else 0, hit_idx.data_ptr(), t.data_ptr(),
+            visits.data_ptr(), stream)
+    if err != 0:
+        msg = lib.drt_cuda_error_string(err).decode()
+        raise RuntimeError(f"traverse_sweep kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+    LAUNCHES += 1
+    return {"hit_idx": hit_idx, "t": t, "visits": visits}
+
+
+def traverse_cluster_sweep(cb: ClusterBvh, origin, direction, *,
+                           anyhit: bool = False, t_max=None) -> dict:
+    """Closest-hit (or any-hit) traversal of the cluster BVH.
+
+    origin/direction: contiguous (N, 3) float32 on one device; t_max: a
+    scalar or (N,) initial t per ray (default 3.4e38). A CUDA tensor
+    launches the kernel (a failed build or launch raises); a CPU tensor
+    runs the twin."""
+    _check_rays(cb, origin, direction)
+    if origin.device.type == "cuda":
+        return _launch(cb, origin, direction, anyhit, t_max)
+    if origin.device.type == "cpu":
+        return traverse_cluster_sweep_reference(cb, origin, direction,
+                                                anyhit=anyhit, t_max=t_max)
+    raise ValueError(f"traverse_cluster_sweep: unsupported device "
+                     f"{origin.device}")
