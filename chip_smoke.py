@@ -2,22 +2,44 @@
 
     python3 chip_smoke.py
 
-Drives the port's forward render path (dustraytracer_tpu_torch) on a
-synthetic scene the size of a dense bundled scene, generated from a seed:
+Drives the port's forward render and gradient paths
+(dustraytracer_tpu_torch) on a synthetic scene the size of a dense
+bundled scene, generated from a seed:
 
   0. card      nvidia-smi name and power limit; fails without CUDA
   1. build     nvcc build of csrc/traverse_sweep.cu for sm_90a
   2. scene     a displaced lat-long sphere (128 x 64 segments) over a
-               textured ground, built by the port's build_scene
+               textured ground (tools/grad_bench.py::sphere_doc), built
+               by the port's build_scene
   3. kernel    the traversal kernel against its PyTorch twin on the card:
                512x512 sorted primary rays, a bounce wave with 10% parked
                lanes, and any-hit shadow rays; equal hit ids, visits and
                occlusion, t within rtol 1e-4; median times of both
-  4. slice     render_progressive at 512x512, 4 bounces, 8 spp; the kernel
-               must launch exactly 2 x bounces x spp times
+  3e. emit     the kernel's emit_attrs mode (the in-kernel shading fetch)
+               on the primary and bounce waves: against the twin, hit ids,
+               visits and materials equal and t, u, v, uv, face normal bit
+               for bit; against the kernel without emission, hit ids, t
+               and visits identical; median times of both modes and twin
+  4. slice     render_progressive at 512x512, 4 bounces, 8 spp; the shade
+               fetch resolves to "kernel", so each bounce launches the
+               kernel once with emission (closest) and once without
+               (shadow any-hit): bounces x spp launches of each
   5. card/cpu  the same render at 96x96, 1 spp, on the card (kernel) and
                on the CPU (twin), within the render tolerance of the tests
   6. cli       the render CLI in a subprocess on a .glb of the scene
+  7. grad      the bench's gradient step at 512x512, 4 bounces: mean image,
+               backward to albedo, emissive, every light field, camera
+               position and vertices (Scene.replace refits in the step);
+               finite and nonzero gradients, 2 x bounces launches, ms per
+               fwd+bwd step, rays/s, peak memory; the same step with the
+               gather fetch; the camera position alone (kernel fetch)
+               agrees with the full step
+  8. grad card/cpu  the same step at 48x48, 2 bounces, on the card
+               (kernel) and on the CPU (twin): loss within 1e-5 relative,
+               gradients within atol 2e-4 max|g|, rtol 2e-3
+  9. optimize  the optimizer CLI's self-test in a subprocess: 30 Adam
+               steps on albedo and lights at 128x128, 2 bounces; the loss
+               must fall and a checkpoint must be written
 
 Each phase prints one JSON line; then a {"kernels": [...]} line, the
 nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failure
@@ -44,11 +66,17 @@ sys.path.insert(0, str(ROOT))
 WIDTH = HEIGHT = 512
 BOUNCES = 4
 SPP = 8
-POSE = dict(position=(0.0, 1.5, 5.0), look_at=(0.0, 0.5, 0.0), vfov_deg=45.0)
 T_RTOL = 1e-4
 PIX_TOL = 2e-3       # tests/test_reference_parity.py golden bound
 PIX_FRAC = 0.999     # share of pixels that must be within PIX_TOL
 MIN_PSNR = 50.0
+EMIT_KEYS = ("u", "v", "uv", "face_nrm", "mat")
+CPU_GRAD_SIZE = 48
+CPU_GRAD_BOUNCES = 2
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 2e-3     # tests/test_sweep.py:277; atol is 2e-4 * max|g|
+OPT_STEPS = 30
+OPT_BOUNCES = 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -58,68 +86,6 @@ def check(cond: bool, msg: str) -> None:
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
-
-
-def make_doc(seed: int = 0):
-    """Displaced sphere (16,128 triangles) on a checker-textured ground
-    quad, two materials, one 256x256 u8 image; all from `seed`."""
-    from dustraytracer_tpu_torch.scene.gltf import (GltfDocument,
-                                                    GltfMaterial,
-                                                    GltfPrimitive)
-
-    rng = np.random.default_rng(seed)
-    n_lon, n_lat = 128, 64
-    lat = np.linspace(0.0, np.pi, n_lat + 1)[:, None]
-    lon = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)[None, :]
-    dirs = np.stack(np.broadcast_arrays(np.sin(lat) * np.cos(lon),
-                                        np.cos(lat),
-                                        np.sin(lat) * np.sin(lon)), axis=-1)
-    freq = rng.normal(0.0, 4.0, (8, 3))
-    phase = rng.uniform(0.0, 2.0 * np.pi, 8)
-    amp = rng.uniform(0.01, 0.03, 8)
-    radius = 1.0 + (amp * np.sin(dirs @ freq.T + phase)).sum(-1)
-    verts = np.array([0.0, 1.0, 0.0]) + dirs * radius[..., None]
-    uvs = np.stack(np.broadcast_arrays(lon / (2 * np.pi), lat / np.pi),
-                   axis=-1)
-
-    tris, nrms, tuv = [], [], []
-    for i in range(n_lat):
-        for j in range(n_lon):
-            a, b, c, d = (i, j), (i + 1, j), (i + 1, j + 1), (i, j + 1)
-            for tri in ((a, b, c), (a, c, d)):
-                if (tri == (a, c, d) and i == 0) or \
-                        (tri == (a, b, c) and i == n_lat - 1):
-                    continue  # degenerate at the poles
-                tris.append([verts[p] for p in tri])
-                nrms.append([dirs[p] for p in tri])
-                tuv.append([uvs[p] for p in tri])
-    sphere = GltfPrimitive(positions=np.asarray(tris, np.float32),
-                           normals=np.asarray(nrms, np.float32),
-                           uvs=np.asarray(tuv, np.float32), material=0)
-
-    h = 50.0
-    g = np.array([[-h, 0, -h], [h, 0, -h], [h, 0, h], [-h, 0, h]], np.float32)
-    guv = np.array([[0, 0], [40, 0], [40, 40], [0, 40]], np.float32)
-    idx = [[0, 2, 1], [0, 3, 2]]
-    ground = GltfPrimitive(
-        positions=g[idx], uvs=guv[idx],
-        normals=np.broadcast_to(np.float32([0, 1, 0]), (2, 3, 3)).copy(),
-        material=1)
-
-    yy, xx = np.mgrid[0:256, 0:256]
-    check_px = ((yy // 32 + xx // 32) % 2).astype(np.uint8)
-    img = np.empty((256, 256, 4), np.uint8)
-    img[..., 0] = np.where(check_px, 150, 20)
-    img[..., 1] = np.where(check_px, 140, 25)
-    img[..., 2] = np.where(check_px, 120, 35)
-    img[..., 3] = 255
-
-    mats = [GltfMaterial(name="sphere",
-                         base_color=np.float32([0.5, 0.2, 0.15])),
-            GltfMaterial(name="ground", base_color=np.float32([1, 1, 1]),
-                         base_color_texture=0)]
-    return GltfDocument(meshes=[("sphere", [sphere]), ("ground", [ground])],
-                        materials=mats, images=[img], cameras=[])
 
 
 def write_glb(path: Path, doc) -> None:
@@ -175,19 +141,9 @@ def write_glb(path: Path, doc) -> None:
                      + struct.pack("<II", len(blob), 0x004E4942) + blob)
 
 
-def median_ms(fn, reps: int = 5) -> float:
-    """Median of `reps` CUDA-event timings of fn() after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+def reset_launches(ts) -> None:
+    ts.LAUNCHES = 0
+    ts.EMIT_LAUNCHES = 0
 
 
 def compare_images(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -212,13 +168,18 @@ def main() -> int:
     from dustraytracer_tpu_torch.ops.rng import seed_pixels
     from dustraytracer_tpu_torch.render.film import (film_image,
                                                      render_progressive)
-    from dustraytracer_tpu_torch.render.integrator import (render_sample,
+    from dustraytracer_tpu_torch.render.integrator import (_resolve_fetch,
+                                                           render_sample,
                                                            ray_sort_key)
     from dustraytracer_tpu_torch.scene.camera import (generate_rays,
                                                       make_camera)
     from dustraytracer_tpu_torch.scene.scene import build_scene
     from dustraytracer_tpu_torch.scene.settings import (LightParams,
                                                         RenderSettings)
+    from dustraytracer_tpu_torch.tools.grad_bench import (GRAD_PARAMS, POSE,
+                                                          grad_step,
+                                                          median_ms,
+                                                          sphere_doc)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -241,7 +202,7 @@ def main() -> int:
 
     # 2. scene
     t0 = time.perf_counter()
-    scene_cpu = build_scene(make_doc(0))
+    scene_cpu = build_scene(sphere_doc())
     build_s = time.perf_counter() - t0
     scene = scene_cpu.to(dev)
     cb = scene.cluster
@@ -311,11 +272,48 @@ def main() -> int:
              hits=int((hk >= 0).sum()), max_abs_t_err=err,
              mean_visits=float(rk["visits"].float().mean()), **results[wave])
 
+    # 3e. the emit_attrs mode against the twin and the plain kernel
+    emit_res, emit_err = {}, 0.0
+    for wave in ("primary", "bounce"):
+        wo, wd, _ = waves[wave]
+        rk = ts.traverse_cluster_sweep(cb, wo, wd, emit_attrs=True)
+        rt = ts.traverse_cluster_sweep_reference(cb, wo, wd, emit_attrs=True)
+        rp = ts.traverse_cluster_sweep(cb, wo, wd)
+        torch.cuda.synchronize()
+        for key in ("hit_idx", "visits", "mat"):
+            check(torch.equal(rk[key], rt[key]),
+                  f"emit {wave}: {key} differs from the twin in "
+                  f"{int((rk[key] != rt[key]).sum())} rays")
+        errs = {}
+        for key in ("t", "u", "v", "uv", "face_nrm"):
+            diff = (rk[key] - rt[key]).abs()
+            errs[key] = float(diff.max())
+            check(torch.equal(rk[key], rt[key]),
+                  f"emit {wave}: {key} not bit for bit with the twin "
+                  f"(max abs {errs[key]})")
+        for key in ("hit_idx", "t", "visits"):
+            check(torch.equal(rk[key], rp[key]),
+                  f"emit {wave}: {key} changes with emission")
+        emit_err = max(emit_err, *errs.values())
+        emit_res[wave] = {
+            "kernel_emit_ms": median_ms(lambda: ts.traverse_cluster_sweep(
+                cb, wo, wd, emit_attrs=True)),
+            "kernel_plain_ms": median_ms(lambda: ts.traverse_cluster_sweep(
+                cb, wo, wd)),
+            "twin_emit_ms": median_ms(
+                lambda: ts.traverse_cluster_sweep_reference(
+                    cb, wo, wd, emit_attrs=True))}
+        emit("kernel_emit_vs_twin", wave=wave, rays=n,
+             hits=int((rk["hit_idx"] >= 0).sum()), max_abs_err=errs,
+             **emit_res[wave])
+
     # 4. the slice, through the user entry point
+    fetch = _resolve_fetch(scene, settings)
+    check(fetch == "kernel", f"shade_fetch 'auto' resolved to {fetch!r}")
     render_progressive(scene, camera, settings, width=WIDTH, height=HEIGHT,
                        spp=1)  # warm-up: allocator, packed tables
     torch.cuda.synchronize()
-    ts.LAUNCHES = 0
+    reset_launches(ts)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -323,17 +321,20 @@ def main() -> int:
                               height=HEIGHT, spp=SPP)
     e1.record()
     torch.cuda.synchronize()
-    launches = ts.LAUNCHES
+    launches = {"slice": (ts.LAUNCHES, ts.EMIT_LAUNCHES)}
     ms = e0.elapsed_time(e1)
     img = film_image(film)
-    check(launches == 2 * BOUNCES * SPP,
-          f"kernel launched {launches} times, expected {2 * BOUNCES * SPP}")
+    check(launches["slice"] == (BOUNCES * SPP, BOUNCES * SPP),
+          f"kernel launched {launches['slice']} times (plain, emit), "
+          f"expected {BOUNCES * SPP} each")
     check(bool(torch.isfinite(img).all()), "render has non-finite pixels")
     mean = float(img.mean())
     check(0.0 < mean <= 1.0, f"render mean {mean} outside (0, 1]")
     check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"shape {img.shape}")
     emit("slice", size=[WIDTH, HEIGHT], bounces=BOUNCES, spp=SPP,
-         launches=launches, mean=mean, ms_per_sample=ms / SPP,
+         shade_fetch=fetch, launches=sum(launches["slice"]),
+         launches_emit=launches["slice"][1], mean=mean,
+         ms_per_sample=ms / SPP,
          mrays_per_second=WIDTH * HEIGHT * SPP * 2 * BOUNCES / (ms / 1e3)
          / 1e6)
 
@@ -348,36 +349,156 @@ def main() -> int:
           f"card vs cpu render: {cmp}")
     emit("card_vs_cpu", size=[96, 96], spp=1, **cmp)
 
+    tmp = tempfile.TemporaryDirectory()
+    glb = Path(tmp.name) / "smoke_scene.glb"
+    write_glb(glb, sphere_doc())
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
     # 6. the CLI
-    with tempfile.TemporaryDirectory() as tmp:
-        glb = Path(tmp) / "smoke_scene.glb"
-        png = Path(tmp) / "smoke.png"
-        write_glb(glb, make_doc(0))
-        env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        proc = subprocess.run(
-            [sys.executable, "-m", "dustraytracer_tpu_torch.apps.cli",
-             "render", "--scene", str(glb), "--size", "256x256", "--spp", "4",
-             "--bounces", "4", "--camera-pos", "0,1.5,5",
-             "--look-at", "0,0.5,0", "--vfov", "45", "--out", str(png)],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"CLI rc {proc.returncode}:\n"
-              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-        metrics = json.loads(proc.stdout)
-        check(png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", "CLI wrote no PNG")
-        check(metrics.get("mrays_per_second") is not None,
-              "CLI metrics lack mrays_per_second")
+    png = Path(tmp.name) / "smoke.png"
+    proc = subprocess.run(
+        [sys.executable, "-m", "dustraytracer_tpu_torch.apps.cli",
+         "render", "--scene", str(glb), "--size", "256x256", "--spp", "4",
+         "--bounces", "4", "--camera-pos", "0,1.5,5",
+         "--look-at", "0,0.5,0", "--vfov", "45", "--out", str(png)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"CLI rc {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    metrics = json.loads(proc.stdout)
+    check(png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", "CLI wrote no PNG")
+    check(metrics.get("mrays_per_second") is not None,
+          "CLI metrics lack mrays_per_second")
     emit("cli", **{k: metrics[k] for k in ("triangles", "size", "spp",
                                            "bounces", "render_seconds",
                                            "mrays_per_second")})
 
-    prim_t = results["primary"]
-    print(json.dumps({"kernels": [{
-        "name": "traverse_sweep", "route": "cuda",
-        "source": "dustraytracer_tpu_torch/csrc/traverse_sweep.cu",
-        "replaces": "dustraytracer_tpu/ops/traverse_sweep.py:98",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": prim_t["kernel_ms"], "plain_ms": prim_t["twin_ms"]}]}))
+    # 7. the gradient step at the bench's size
+    gset = RenderSettings(bounces=BOUNCES, enable_tonemap=False,
+                          enable_gamma=False)
+    fetch = _resolve_fetch(scene, gset)
+    check(fetch == "kernel", f"grad: shade_fetch 'auto' resolved to "
+          f"{fetch!r}, expected 'kernel'")
+    grad_step(scene, camera, lights, gset, WIDTH, HEIGHT)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_launches(ts)
+    loss, grads = grad_step(scene, camera, lights, gset, WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    launches["grad"] = (ts.LAUNCHES, ts.EMIT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["grad"] == (BOUNCES, BOUNCES),
+          f"grad step launched {launches['grad']} (plain, emit), expected "
+          f"{BOUNCES} each")
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"grad: {k} not finite")
+    for k in ("mat_albedo", "sun_color", "sun_intensity", "sky_color",
+              "sky_intensity", "tri_pos"):
+        check(float(grads[k].abs().max()) > 0.0, f"grad: {k} is all zero")
+    step_ms = median_ms(lambda: grad_step(scene, camera, lights, gset,
+                                          WIDTH, HEIGHT))
+    gather_set = gset.replace(shade_fetch="gather")
+    torch.cuda.reset_peak_memory_stats()
+    loss_g, _ = grad_step(scene, camera, lights, gather_set, WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    peak_g = torch.cuda.max_memory_allocated()
+    check(abs(float(loss_g) - float(loss)) <= LOSS_RTOL * abs(float(loss)),
+          f"grad: gather loss {float(loss_g)} vs kernel {float(loss)}")
+    gather_ms = median_ms(lambda: grad_step(scene, camera, lights,
+                                            gather_set, WIDTH, HEIGHT))
+    # the camera alone, as `optimize --optimize camera` differentiates it:
+    # the rays are then the kernel fetch's only differentiable input
+    _, g_cam = grad_step(scene, camera, lights, gset, WIDTH, HEIGHT,
+                         wrt=("position",))
+    g_full = grads["position"]
+    check(bool(torch.isfinite(g_cam["position"]).all()) and bool(
+        ((g_cam["position"] - g_full).abs()
+         <= 2e-4 * float(g_full.abs().max())
+         + GRAD_RTOL * g_full.abs()).all()),
+          f"grad: camera-only gradient {g_cam['position'].tolist()} vs "
+          f"{g_full.tolist()} in the full step")
+    rays = WIDTH * HEIGHT * 2 * BOUNCES
+    emit("grad", size=[WIDTH, HEIGHT], bounces=BOUNCES, shade_fetch=fetch,
+         loss=float(loss), launches=sum(launches["grad"]),
+         launches_emit=launches["grad"][1], ms_per_step=step_ms,
+         rays_per_second=rays / (step_ms / 1e3),
+         peak_mem_gib=peak / 2 ** 30,
+         step_mem_gib=(peak - base_mem) / 2 ** 30,
+         gather_ms_per_step=gather_ms,
+         gather_rays_per_second=rays / (gather_ms / 1e3),
+         gather_peak_mem_gib=peak_g / 2 ** 30,
+         camera_only_grad=g_cam["position"].tolist(),
+         grad_max_abs={k: float(g.abs().max()) for k, g in grads.items()})
+    del grads
+
+    # 8. the gradient step on the card (kernel) and on the CPU (twin)
+    cset = gset.replace(bounces=CPU_GRAD_BOUNCES, shade_fetch="kernel")
+    s = CPU_GRAD_SIZE
+    loss_k, g_k = grad_step(scene, camera, lights, cset, s, s)
+    loss_c, g_c = grad_step(scene_cpu, camera.to("cpu"), lights.to("cpu"),
+                            cset, s, s)
+    rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+    check(rel <= LOSS_RTOL, f"grad card vs cpu: loss rel diff {rel}")
+    excess = {}
+    for k in GRAD_PARAMS:
+        gk, gc = g_k[k].cpu(), g_c[k]
+        bound = 2e-4 * float(gc.abs().max()) + GRAD_RTOL * gc.abs()
+        excess[k] = float(((gk - gc).abs() - bound).max())
+        check(excess[k] <= 0.0, f"grad card vs cpu: {k} beyond tolerance "
+              f"by {excess[k]}")
+    emit("grad_card_vs_cpu", size=[s, s], bounces=CPU_GRAD_BOUNCES,
+         loss_card=float(loss_k), loss_cpu=float(loss_c), loss_rel_diff=rel,
+         max_excess_over_tol=excess)
+
+    # 9. the optimizer CLI
+    out = Path(tmp.name) / "opt"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dustraytracer_tpu_torch.apps.optimize",
+         "--scene", str(glb), "--self-test", "--optimize", "albedo",
+         "lights", "--size", "128x128", "--steps", str(OPT_STEPS),
+         "--bounces", str(OPT_BOUNCES), "--checkpoint-every", "10",
+         "--camera-pos", "0,1.5,5", "--look-at", "0,0.5,0", "--vfov", "45",
+         "--out", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"optimize rc {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout)
+    first, final = res["history"][0]["loss"], res["final_loss"]
+    check(final < first, f"optimize: loss {first} -> {final} did not fall")
+    check((out / "ckpt.npz").exists(), "optimize wrote no ckpt.npz")
+    launches["optimize"] = tuple(res["traversal_launches"])
+    check(launches["optimize"] == (OPT_STEPS * OPT_BOUNCES,
+                                   OPT_STEPS * OPT_BOUNCES),
+          f"optimize launched {launches['optimize']} (plain, emit), "
+          f"expected {OPT_STEPS * OPT_BOUNCES} each")
+    emit("optimize", steps=OPT_STEPS, size=[128, 128], bounces=OPT_BOUNCES,
+         first_loss=first, final_loss=final,
+         seconds_per_step=res["seconds_per_step"],
+         param_mae=res["param_mae"], launches=sum(launches["optimize"]),
+         wall_seconds=wall)
+    tmp.cleanup()
+
+    by_path = {p: {"traverse_sweep": c[0], "traverse_sweep[emit_attrs]": c[1]}
+               for p, c in launches.items()}
+    src = "dustraytracer_tpu_torch/csrc/traverse_sweep.cu"
+    prim_t, prim_e = results["primary"], emit_res["primary"]
+    print(json.dumps({"kernels": [
+        {"name": "traverse_sweep", "route": "cuda", "source": src,
+         "replaces": "dustraytracer_tpu/ops/traverse_sweep.py:98",
+         "launches": launches["grad"][0], "max_abs_err": max_err,
+         "ms": prim_t["kernel_ms"], "plain_ms": prim_t["twin_ms"],
+         "launches_by_path": {p: c["traverse_sweep"]
+                              for p, c in by_path.items()}},
+        {"name": "traverse_sweep[emit_attrs]", "route": "cuda",
+         "source": src,
+         "replaces": "dustraytracer_tpu/ops/traverse_sweep.py:347",
+         "launches": launches["grad"][1], "max_abs_err": emit_err,
+         "ms": prim_e["kernel_emit_ms"], "plain_ms": prim_e["twin_emit_ms"],
+         "launches_by_path": {p: c["traverse_sweep[emit_attrs]"]
+                              for p, c in by_path.items()}}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,8 +2,10 @@
 
 The numpy builder, the pre-order threading with skip links and the
 static refit plan, unchanged, so the port's tables equal the JAX
-package's array for array (tests/test_torch_scene.py). The native C++
-builder is not ported yet: `build_bvh(use_native=True)` raises.
+package's array for array (tests/test_torch_scene.py), and the torch
+refit of the node boxes from live vertices (`refit_bvh_boxes`). The
+native C++ builder is not ported yet: `build_bvh(use_native=True)`
+raises.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 TRAVERSAL_COST = 1.0  # reference: BVHNode.cuh:26-27
 INTERSECT_COST = 2.0
@@ -287,3 +290,34 @@ def refit_plan(node_first: np.ndarray, node_count: np.ndarray,
     a = k * n + lo
     b = k * n + hi - (1 << k)
     return levels, a.astype(np.int32), b.astype(np.int32), n
+
+
+def sparse_table(x: torch.Tensor, levels: int, reduce_fn) -> torch.Tensor:
+    """(levels * N, 3) stacked power-of-two window reductions of the
+    (N, 3) rows `x`: level l holds reduce(x[i : i + 2**l]), rows past
+    N - 2**l clamped (a refit plan never queries them)."""
+    lev = [x]
+    for lvl in range(1, levels):
+        h = 1 << (lvl - 1)
+        prev = lev[-1]
+        shifted = torch.cat([prev[h:], prev[-1:].expand(h, -1)], dim=0)
+        lev.append(reduce_fn(prev, shifted))
+    return torch.cat(lev, dim=0)
+
+
+@torch.no_grad()
+def refit_bvh_boxes(tri_pos, node_min, node_max, *, levels: int,
+                    range_a, range_b, n_tris: int, n_nodes: int):
+    """Recompute the threaded node boxes from live (N', 3, 3) vertices
+    with a refit plan's range queries. Returns new (node_min, node_max);
+    padding rows past `n_nodes` are kept from the inputs. Boxes carry no
+    gradient (traversal is a discrete selector)."""
+    tp = tri_pos.detach()[:n_tris]
+    flat_min = sparse_table(tp.amin(dim=1), levels, torch.minimum)
+    flat_max = sparse_table(tp.amax(dim=1), levels, torch.maximum)
+    a = range_a[:n_nodes].to(torch.int64)
+    b = range_b[:n_nodes].to(torch.int64)
+    new_min = torch.minimum(flat_min[a], flat_min[b])
+    new_max = torch.maximum(flat_max[a], flat_max[b])
+    return (torch.cat([new_min, node_min[n_nodes:]], dim=0),
+            torch.cat([new_max, node_max[n_nodes:]], dim=0))

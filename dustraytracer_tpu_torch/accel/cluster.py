@@ -10,7 +10,8 @@ tables then live as torch tensors on one device.
 
 `device_tables` caches what a traversal kernel packs from these tables
 (ops/traverse_sweep.py), per device, so the packing runs once per scene
-and not once per call.
+and not once per call. `refit_cluster_bvh` re-bakes the tables from live
+vertices into a new object with an empty cache.
 """
 
 from __future__ import annotations
@@ -238,3 +239,68 @@ def _pad8(a: np.ndarray, fill) -> np.ndarray:
         return a
     pad = np.full((a.shape[0], r) + a.shape[2:], fill, a.dtype)
     return np.concatenate([a, pad], axis=1)
+
+
+@torch.no_grad()
+def refit_cluster_bvh(cb: ClusterBvh, tri_pos: torch.Tensor) -> ClusterBvh:
+    """Re-bake the cluster tables from live triangle positions, topology
+    fixed: v0/e1/e2, the cluster-BVH node boxes, all 8 octant tables and
+    the oriented face normals. `tri_pos` is the SAH-permuted (N, 3, 3)
+    array the tables were built from; padding triangles are zeros, as in
+    build_cluster_bvh, so a refit with the built vertices reproduces the
+    built tables. No gradient flows into the tables.
+
+    Returns a NEW ClusterBvh with an empty `device_tables` cache: the
+    kernel must never walk tables packed from the old geometry."""
+    if cb.refit_a is None:
+        raise ValueError("ClusterBvh was built without a refit plan")
+    from dustraytracer_tpu_torch.accel.bvh import sparse_table
+
+    c, k, m = cb.n_clusters, cb.k, cb.n_nodes
+    pad_n = c * k
+    take = min(tri_pos.shape[0], pad_n)
+    tp = tri_pos.detach()[:take].to(torch.float32)
+    if take < pad_n:
+        tp = torch.cat([tp, tp.new_zeros((pad_n - take, 3, 3))], dim=0)
+    v0 = tp[:, 0].reshape(c, k, 3)
+    e1 = (tp[:, 1] - tp[:, 0]).reshape(c, k, 3)
+    e2 = (tp[:, 2] - tp[:, 0]).reshape(c, k, 3)
+
+    corners = tp.reshape(c, k * 3, 3)
+    perm = cb.cl_perm.to(torch.int64)  # tree order of the clusters
+    fmin = sparse_table(corners.amin(dim=1)[perm], cb.refit_levels,
+                        torch.minimum)
+    fmax = sparse_table(corners.amax(dim=1)[perm], cb.refit_levels,
+                        torch.maximum)
+    a = cb.refit_a.to(torch.int64)
+    b = cb.refit_b.to(torch.int64)
+    nm = torch.minimum(fmin[a], fmin[b])
+    nx = torch.maximum(fmax[a], fmax[b])
+
+    def splice(old, new):
+        return torch.cat([new, old[new.shape[0]:]], dim=0)
+
+    extra = {}
+    if cb.oct_min is not None:
+        # the 8 threadings are permutations of the same node set
+        operm = cb.oct_perm0[:, :m].reshape(-1).to(torch.int64)
+        extra["oct_min"] = torch.cat(
+            [nm[operm].reshape(8, m, 3), cb.oct_min[:, m:]], dim=1)
+        extra["oct_max"] = torch.cat(
+            [nx[operm].reshape(8, m, 3), cb.oct_max[:, m:]], dim=1)
+    if cb.face_nrm is not None:
+        # the ingest orientation survives as a sign against the old normal
+        raw = torch.linalg.cross(e1, e2, dim=-1)
+        n2 = (raw * raw).sum(dim=-1, keepdim=True)
+        good = n2 > 1e-24
+        raw = torch.where(good, raw / torch.sqrt(torch.where(good, n2, 1.0)),
+                          0.0)
+        old = cb.face_nrm[:c]
+        sign = torch.where((raw * old).sum(dim=-1, keepdim=True) < 0, -1.0,
+                           1.0)
+        extra["face_nrm"] = splice(cb.face_nrm, raw * sign)
+
+    return dataclasses.replace(
+        cb, node_min=splice(cb.node_min, nm), node_max=splice(cb.node_max, nx),
+        v0=splice(cb.v0, v0), e1=splice(cb.e1, e1), e2=splice(cb.e2, e2),
+        device_tables={}, **extra)

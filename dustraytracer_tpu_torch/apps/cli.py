@@ -123,8 +123,9 @@ def cmd_render(args) -> int:
     # or load the kernel, pack the scene's device tables and load torch's
     # kernels through one throwaway 8x8 sample
     t0 = time.perf_counter()
-    render_sample(scene, camera, lights, 0, width=8, height=8,
-                  settings=settings)
+    with torch.inference_mode():  # forward only: no autograd graph
+        render_sample(scene, camera, lights, 0, width=8, height=8,
+                      settings=settings)
     if cuda:
         torch.cuda.synchronize(device)
     compile_s = time.perf_counter() - t0

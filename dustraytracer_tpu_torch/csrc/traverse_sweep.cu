@@ -32,6 +32,17 @@
 // twin (ops/traverse_sweep.py traverse_cluster_sweep_reference), whose
 // eager ops round one by one; the operation order is the twin's, e.g.
 // det = e1x*px + e1y*py + e1z*pz, left to right.
+//
+// Emit mode (the TPU kernel's `attrs`, traverse_sweep.py:347-379): the
+// in-kernel shading fetch. The TPU body selects the winner's u, v, uv,
+// face normal and material with a masked K-reduce at every executed
+// leaf; here a thread keeps the winning slot's (cluster, slot, u, v) as
+// the Möller–Trumbore test that committed it computed them, and after
+// the walk reads that slot's row of the attribute table once (three
+// float4: [uv0.xy uv1.xy] [uv2.xy fn.xy] [fn.z mat 0 0]) and writes
+// uv = (1-u-v)*uv0 + u*uv1 + v*uv2, face_nrm and mat; misses get zeros.
+// It is a template instance of the same kernel, so hit_idx, t and
+// visits do not depend on the mode.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +62,16 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
+struct EmitOut {
+  const float4* attrs;  // (C, K, 3) float4 rows, see the header
+  float* u;
+  float* v;
+  float* uv;        // (N, 2)
+  float* face_nrm;  // (N, 3)
+  int* mat;
+};
+
+template <bool kEmit>
 __global__ void __launch_bounds__(kBlock)
 traverse_sweep_kernel(const float* __restrict__ origin,
                       const float* __restrict__ direction,
@@ -58,7 +79,7 @@ traverse_sweep_kernel(const float* __restrict__ origin,
                       const float4* __restrict__ nodes, int m,
                       const float4* __restrict__ tris, int k, int anyhit,
                       int* __restrict__ hit_out, float* __restrict__ t_out,
-                      int* __restrict__ visits_out) {
+                      int* __restrict__ visits_out, EmitOut emit) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const float ox = __ldg(origin + 3 * r + 0);
@@ -76,6 +97,8 @@ traverse_sweep_kernel(const float* __restrict__ origin,
   float hit_t = __ldg(t_max + r);
   int hit_idx = -1;
   int visits = 0;
+  int win_c = 0, win_j = 0;  // emit mode: the committed hit's slot
+  float win_u = 0.0f, win_v = 0.0f;
   int i = 0;
   // pre-order pointers only move forward, so a walk ends within m steps;
   // the bound only guards against a malformed table
@@ -107,6 +130,8 @@ traverse_sweep_kernel(const float* __restrict__ origin,
       const float cur_t = hit_t;
       float best_t = kBig;
       int best_id = kNoId;
+      int best_j = 0;
+      float best_u = 0.0f, best_v = 0.0f;
       const float4* ct = tris + (size_t)cluster * k * 3;
       for (int j = 0; j < k; ++j) {
         const float4 a = __ldg(ct + 3 * j + 0);
@@ -134,11 +159,22 @@ traverse_sweep_kernel(const float* __restrict__ origin,
         if (valid && (tt < best_t || (tt == best_t && tri_id < best_id))) {
           best_t = tt;
           best_id = tri_id;
+          if (kEmit) {
+            best_j = j;
+            best_u = u;
+            best_v = v;
+          }
         }
       }
       if (best_id < kNoId && best_t < cur_t) {
         hit_t = best_t;
         hit_idx = best_id;
+        if (kEmit) {
+          win_c = cluster;
+          win_j = best_j;
+          win_u = best_u;
+          win_v = best_v;
+        }
         if (anyhit) next = -1;
       }
     }
@@ -147,21 +183,58 @@ traverse_sweep_kernel(const float* __restrict__ origin,
   hit_out[r] = hit_idx;
   t_out[r] = hit_t;
   visits_out[r] = visits;
+  if (kEmit) {
+    float uvx = 0.0f, uvy = 0.0f, fx = 0.0f, fy = 0.0f, fz = 0.0f;
+    int mat = 0;
+    if (hit_idx >= 0) {
+      const float4* row = emit.attrs + ((size_t)win_c * k + win_j) * 3;
+      const float4 a = __ldg(row + 0);  // uv0.xy uv1.xy
+      const float4 b = __ldg(row + 1);  // uv2.xy fn.xy
+      const float4 c = __ldg(row + 2);  // fn.z mat
+      const float w = 1.0f - win_u - win_v;
+      uvx = w * a.x + win_u * a.z + win_v * b.x;
+      uvy = w * a.y + win_u * a.w + win_v * b.y;
+      fx = b.z;
+      fy = b.w;
+      fz = c.x;
+      mat = __float_as_int(c.y);
+    }
+    emit.u[r] = win_u;
+    emit.v[r] = win_v;
+    emit.uv[2 * r + 0] = uvx;
+    emit.uv[2 * r + 1] = uvy;
+    emit.face_nrm[3 * r + 0] = fx;
+    emit.face_nrm[3 * r + 1] = fy;
+    emit.face_nrm[3 * r + 2] = fz;
+    emit.mat[r] = mat;
+  }
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream`; returns cudaGetLastError() (0 = launched). A
+// non-null `attrs` selects emit mode, which then writes u, v, uv,
+// face_nrm and mat; with a null `attrs` those pointers are not read.
 extern "C" int drt_traverse_sweep(const float* origin, const float* direction,
                                   const float* t_max, int n,
                                   const void* nodes, int m, const void* tris,
                                   int k, int anyhit, int* hit_idx, float* t,
-                                  int* visits, void* stream) {
+                                  int* visits, const void* attrs, float* u,
+                                  float* v, float* uv, float* face_nrm,
+                                  int* mat, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kBlock - 1) / kBlock;
-  traverse_sweep_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_max, n, (const float4*)nodes, m,
-      (const float4*)tris, k, anyhit, hit_idx, t, visits);
+  const EmitOut emit{(const float4*)attrs, u, v, uv, face_nrm, mat};
+  if (attrs != nullptr) {
+    traverse_sweep_kernel<true><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+        origin, direction, t_max, n, (const float4*)nodes, m,
+        (const float4*)tris, k, anyhit, hit_idx, t, visits, emit);
+  } else {
+    traverse_sweep_kernel<false><<<blocks, kBlock, 0,
+                                   (cudaStream_t)stream>>>(
+        origin, direction, t_max, n, (const float4*)nodes, m,
+        (const float4*)tris, k, anyhit, hit_idx, t, visits, emit);
+  }
   return (int)cudaGetLastError();
 }
 

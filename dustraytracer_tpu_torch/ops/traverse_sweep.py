@@ -8,10 +8,14 @@ pre-order threading of the ray's own direction octant, closest hit
 (smallest t, ties to the lowest triangle id, strict improvement only) or
 any hit, with a per-ray initial t (`t_max`). They return detached
 {"hit_idx" i32 (-1 = miss), "t" f32, "visits" i32} tensors: traversal is
-a discrete selector with no gradient.
+a discrete selector with no gradient. With `emit_attrs=True` (the
+in-kernel shading fetch, settings.shade_fetch="kernel") they also return
+the winning hit's barycentric "u", "v" (N,), interpolated "uv" (N, 2),
+oriented "face_nrm" (N, 3) and material "mat" (N,) i32, read once per
+ray from the cluster attribute tables; misses get zeros.
 
-The TPU kernel's per-tile work counters (exec_windows, exec_leafs) and
-in-kernel attribute emission (emit_attrs) are not ported yet.
+The TPU kernel's per-tile work counters (exec_windows, exec_leafs) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ from dustraytracer_tpu_torch.accel.cluster import ClusterBvh
 BIG = 3.4e38
 _NO_ID = 2 ** 30
 
-# kernel launches since import (or since a caller reset it); the twin
-# never counts
+# kernel launches since import (or since a caller reset them), closest
+# or any-hit without emission and with emit_attrs; the twin never counts
 LAUNCHES = 0
+EMIT_LAUNCHES = 0
 
 
 def _octant(d: torch.Tensor) -> torch.Tensor:
@@ -76,17 +81,27 @@ def _t_init(t_max, n: int, device) -> torch.Tensor:
     return torch.broadcast_to(t, (n,)).contiguous()
 
 
+def _check_attrs(cb: ClusterBvh, emit_attrs: bool):
+    if emit_attrs and cb.uv is None:
+        raise ValueError("emit_attrs requires attribute tables "
+                         "(build_cluster_bvh uv/face_nrm/mat)")
+
+
 @torch.no_grad()
 def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
-                                     anyhit: bool = False, t_max=None):
+                                     anyhit: bool = False, t_max=None,
+                                     emit_attrs: bool = False):
     """Plain PyTorch twin of the CUDA kernel: a lockstep per-lane walk.
 
     Every lane holds its own node pointer into its octant's threading;
     each step gathers the node rows of the live lanes, slab-tests them,
     and runs a K-wide Möller–Trumbore on the (n_leaf, K) cluster rows of
     the lanes that entered a leaf. Operations are in the kernel's order,
-    one rounding each, so on the card the two agree bit for bit."""
+    one rounding each, so on the card the two agree bit for bit. With
+    emit_attrs, a commit also records the winning slot and its u, v, and
+    the attributes are read once per ray after the walk."""
     _check_rays(cb, origin, direction)
+    _check_attrs(cb, emit_attrs)
     n = origin.shape[0]
     dev = origin.device
     box_lo, box_hi, skip_t, clus_t = _oct_tables(cb)
@@ -96,6 +111,11 @@ def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
     hit_t = _t_init(t_max, n, dev).clone()
     hit_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
     visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if emit_attrs:  # winner's cluster (-1 = none), slot, u, v
+        win_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        win_j = torch.zeros((n,), dtype=torch.int64, device=dev)
+        win_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+        win_v = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     lanes = torch.arange(n, device=dev)
     node = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -167,6 +187,14 @@ def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
             won = at_leaf[improve]
             hit_t[lanes[won]] = best_t[improve]
             hit_idx[lanes[won]] = best_id[improve]
+            if emit_attrs:
+                # the one slot holding (best_t, best_id): ids are unique
+                sel = is_best & (tri_id == best_id[:, None])
+                slot = sel.to(torch.int32).argmax(dim=1, keepdim=True)
+                win_c[lanes[won]] = cl[improve]
+                win_j[lanes[won]] = slot[improve, 0]
+                win_u[lanes[won]] = u.gather(1, slot)[improve, 0]
+                win_v[lanes[won]] = v.gather(1, slot)[improve, 0]
             if anyhit:
                 nxt[won] = -1
 
@@ -174,7 +202,21 @@ def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
         live = nxt >= 0
         lanes, node = lanes[live], node[live]
 
-    return {"hit_idx": hit_idx, "t": hit_t, "visits": visits}
+    out = {"hit_idx": hit_idx, "t": hit_t, "visits": visits}
+    if emit_attrs:
+        hit = (win_c >= 0)[:, None]
+        c_safe = torch.clamp_min(win_c, 0)
+        uvs = cb.uv[c_safe, win_j]  # (N, 3, 2)
+        w = 1.0 - win_u - win_v
+        uv = (w[:, None] * uvs[:, 0] + win_u[:, None] * uvs[:, 1]
+              + win_v[:, None] * uvs[:, 2])
+        out.update({
+            "u": win_u, "v": win_v,
+            "uv": torch.where(hit, uv, 0.0),
+            "face_nrm": torch.where(hit, cb.face_nrm[c_safe, win_j], 0.0),
+            "mat": torch.where(hit[:, 0], cb.mat[c_safe, win_j], 0)
+            .to(torch.int32)})
+    return out
 
 
 def load_kernel():
@@ -186,7 +228,7 @@ def load_kernel():
     if not getattr(lib, "_drt_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.drt_traverse_sweep.argtypes = [p, p, p, i, p, i, p, i, i,
-                                           p, p, p, p]
+                                           p, p, p, p, p, p, p, p, p, p]
         lib.drt_traverse_sweep.restype = ctypes.c_int
         lib.drt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.drt_cuda_error_string.restype = ctypes.c_char_p
@@ -221,47 +263,89 @@ def device_tables(cb: ClusterBvh):
     return cb.device_tables[key]
 
 
+def device_attr_table(cb: ClusterBvh):
+    """The emit mode's packed attribute table for `cb`, built once per
+    device on first use: per triangle slot (C, K, 3, 4) f32
+    [uv0.xy uv1.xy], [uv2.xy fn.xy], [fn.z mat 0 0], mat stored bit for
+    bit in its float lane."""
+    key = (str(cb.device), "attrs")
+    if key not in cb.device_tables:
+        _check_attrs(cb, True)
+        c, k = cb.uv.shape[0], cb.uv.shape[1]
+        attrs = torch.zeros((c, k, 3, 4), dtype=torch.float32,
+                            device=cb.device)
+        attrs[:, :, 0, :] = cb.uv[:, :, 0:2].reshape(c, k, 4)
+        attrs[:, :, 1, 0:2] = cb.uv[:, :, 2]
+        attrs[:, :, 1, 2:4] = cb.face_nrm[..., 0:2]
+        attrs[:, :, 2, 0] = cb.face_nrm[..., 2]
+        attrs.view(torch.int32)[:, :, 2, 1] = cb.mat
+        cb.device_tables[key] = attrs.contiguous()
+    return cb.device_tables[key]
+
+
 @torch.no_grad()
-def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max):
-    global LAUNCHES
+def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
+            emit_attrs: bool):
+    global LAUNCHES, EMIT_LAUNCHES
     n = origin.shape[0]
     dev = origin.device
     t0 = _t_init(t_max, n, dev)
-    hit_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    out = {"hit_idx": torch.full((n,), -1, dtype=torch.int32, device=dev),
+           "t": torch.empty((n,), dtype=torch.float32, device=dev),
+           "visits": torch.zeros((n,), dtype=torch.int32, device=dev)}
+    if emit_attrs:
+        out.update({
+            "u": torch.empty((n,), dtype=torch.float32, device=dev),
+            "v": torch.empty((n,), dtype=torch.float32, device=dev),
+            "uv": torch.empty((n, 2), dtype=torch.float32, device=dev),
+            "face_nrm": torch.empty((n, 3), dtype=torch.float32, device=dev),
+            "mat": torch.empty((n,), dtype=torch.int32, device=dev)})
     if n == 0:
-        return {"hit_idx": hit_idx, "t": t0, "visits": visits}
+        out["t"] = t0
+        return out
     nodes, tris = device_tables(cb)
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    attrs = device_attr_table(cb) if emit_attrs else None
+
+    def ptr(key):  # NULL for the emit outputs when emission is off
+        return out[key].data_ptr() if key in out else None
+
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.drt_traverse_sweep(
             origin.data_ptr(), direction.data_ptr(), t0.data_ptr(), n,
             nodes.data_ptr(), cb.n_nodes, tris.data_ptr(), cb.k,
-            1 if anyhit else 0, hit_idx.data_ptr(), t.data_ptr(),
-            visits.data_ptr(), stream)
+            1 if anyhit else 0, ptr("hit_idx"), ptr("t"), ptr("visits"),
+            None if attrs is None else attrs.data_ptr(), ptr("u"), ptr("v"),
+            ptr("uv"), ptr("face_nrm"), ptr("mat"), stream)
     if err != 0:
         msg = lib.drt_cuda_error_string(err).decode()
         raise RuntimeError(f"traverse_sweep kernel launch failed: {msg} "
                            f"(cudaError {err})")
-    LAUNCHES += 1
-    return {"hit_idx": hit_idx, "t": t, "visits": visits}
+    if emit_attrs:
+        EMIT_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return out
 
 
 def traverse_cluster_sweep(cb: ClusterBvh, origin, direction, *,
-                           anyhit: bool = False, t_max=None) -> dict:
+                           anyhit: bool = False, t_max=None,
+                           emit_attrs: bool = False) -> dict:
     """Closest-hit (or any-hit) traversal of the cluster BVH.
 
     origin/direction: contiguous (N, 3) float32 on one device; t_max: a
-    scalar or (N,) initial t per ray (default 3.4e38). A CUDA tensor
-    launches the kernel (a failed build or launch raises); a CPU tensor
-    runs the twin."""
+    scalar or (N,) initial t per ray (default 3.4e38); emit_attrs: also
+    return the winner's u, v, uv, face_nrm, mat (needs cb.uv). A CUDA
+    tensor launches the kernel (a failed build or launch raises); a CPU
+    tensor runs the twin."""
     _check_rays(cb, origin, direction)
+    _check_attrs(cb, emit_attrs)
     if origin.device.type == "cuda":
-        return _launch(cb, origin, direction, anyhit, t_max)
+        return _launch(cb, origin, direction, anyhit, t_max, emit_attrs)
     if origin.device.type == "cpu":
         return traverse_cluster_sweep_reference(cb, origin, direction,
-                                                anyhit=anyhit, t_max=t_max)
+                                                anyhit=anyhit, t_max=t_max,
+                                                emit_attrs=emit_attrs)
     raise ValueError(f"traverse_cluster_sweep: unsupported device "
                      f"{origin.device}")

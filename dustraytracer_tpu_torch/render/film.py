@@ -31,10 +31,12 @@ def film_image(film: Film) -> torch.Tensor:
     return film.accum / float(max(film.frame, 1))
 
 
+@torch.inference_mode()
 def film_accumulate(scene, camera, lights, film: Film, count: int, *,
                     width: int, height: int,
                     settings: RenderSettings) -> Film:
-    """Accumulate `count` samples; sample j uses frame film.frame + j."""
+    """Accumulate `count` samples; sample j uses frame film.frame + j.
+    Forward only: runs under inference_mode, so no autograd graph."""
     start = film.frame
     for j in range(count):
         sample = render_sample(scene, camera, lights, start + j,

@@ -1,5 +1,5 @@
-"""The path integrator over ray batches, forward NORMAL mode (port of
-render/integrator.py).
+"""The differentiable path integrator over ray batches, NORMAL mode
+(port of render/integrator.py).
 
 One sample for N pixels is a wavefront: camera rays, then `bounces`
 path segments, each of which traces closest hits, adds sky on a miss,
@@ -7,15 +7,21 @@ multiplies the throughput by the (textured) albedo, adds the sun through
 an any-hit shadow ray, and bounces diffusely; finally tonemap and gamma.
 Traversal goes through ops/traverse_sweep.py (the CUDA kernel on a card,
 its twin on the CPU), with rays sorted by (direction octant, origin
-Morton) first. Shading recomputes the hit attributes from the hit ids
-with plain gathers.
+Morton) first. It is a discrete selector: it gets detached rays and runs
+under no_grad. Autograd runs through the shading, which gets the hit
+attributes either by gathers from the hit ids (shade_fetch="gather") or
+from the kernel's in-kernel fetch (shade_fetch="kernel"), whose backward
+recomputes them through shade_hits (_KernelShade). Gradients reach materials,
+lights, camera and vertex positions.
 
 Options the port does not run yet raise NotImplementedError: the debug
-views, shading="pbr", shade_fetch="kernel", soft_edges, alpha_test, and
-the brute-force, gather-walk and XLA-cluster traversals.
+views, shading="pbr", soft_edges, alpha_test, and the brute-force,
+gather-walk and XLA-cluster traversals.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -42,8 +48,6 @@ def _check_settings(settings: RenderSettings):
         raise _not_ported("render_mode=DEBUG (debug views)")
     if settings.shading != "reference":
         raise _not_ported(f"shading={settings.shading!r}")
-    if settings.shade_fetch == "kernel":
-        raise _not_ported("shade_fetch='kernel'")
     if settings.soft_edges > 0.0:
         raise _not_ported("soft_edges")
     if settings.alpha_test:
@@ -54,6 +58,47 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
+def _resolve_fetch(scene, settings: RenderSettings) -> str:
+    """The triangle-attribute fetch: "kernel" (in-kernel emission) or
+    "gather". An explicit "kernel" is honoured or raises ValueError;
+    "auto" picks "kernel" on a card for cluster scenes of 12,288 to
+    16,384 padded triangles that the sweep traverses (the JAX package's
+    measured band), else "gather", and always "gather" on the CPU.
+    "onehot" is a TPU workaround and means "gather" here."""
+    fetch = settings.shade_fetch
+    cb = scene.cluster
+    wavefront_only = (settings.smooth_shading or settings.soft_edges > 0.0
+                      or settings.alpha_test)
+    if fetch == "kernel":
+        if wavefront_only:
+            raise ValueError(
+                "shade_fetch='kernel' is incompatible with "
+                "smooth_shading/soft_edges/alpha_test (they need "
+                "per-hit wavefront recomputation)")
+        if cb is None or cb.uv is None:
+            raise ValueError("shade_fetch='kernel' needs cluster "
+                             "attribute tables (build_cluster_bvh uv/"
+                             "face_nrm/mat)")
+        return "kernel"
+    if fetch != "auto" or scene.device.type == "cpu":
+        return "gather"
+    n = scene.tri_pos.shape[0]
+    if (12288 <= n <= 16384 and cb is not None and cb.uv is not None
+            and not wavefront_only
+            and settings.traversal in ("auto", "sweep")
+            and cb.n_clusters * cb.k > settings.brute_max_tris):
+        return "kernel"
+    return "gather"
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] along dim 0. Differentiable gathers go through
+    index_select: its backward is an atomic index_add, where the backward
+    of table[idx] walks each run of equal indices serially, and here runs
+    are long (every ray of one material, every miss lane at triangle 0)."""
+    return table.index_select(0, idx.to(torch.int64))
+
+
 def _fetch_material(scene, mats: torch.Tensor) -> dict:
     """Per-ray material attributes, one packed row gather."""
     tab = torch.cat(
@@ -61,7 +106,7 @@ def _fetch_material(scene, mats: torch.Tensor) -> dict:
          scene.mat_metallic[:, None], scene.mat_roughness[:, None],
          scene.mat_albedo_tex.to(torch.float32)[:, None],
          scene.mat_transmission[:, None], scene.mat_ior[:, None]], dim=1)
-    rows = tab[mats.to(torch.int64)]
+    rows = _rows(tab, mats)
     return {"albedo": rows[:, 0:3], "emissive": rows[:, 3:6],
             "metallic": rows[:, 6], "roughness": rows[:, 7],
             "tex": rows[:, 8].to(torch.int32),
@@ -73,14 +118,14 @@ def shade_hits(scene, origin, direction, hit_idx, smooth: bool = False):
     row gather per ray: world position, viewer-facing normal (geometric,
     or interpolated vertex normals with smooth=True), uv, barycentrics,
     material id, front_face. Miss lanes get finite placeholder values."""
-    safe = torch.clamp_min(hit_idx, 0).to(torch.int64)
+    safe = torch.clamp_min(hit_idx, 0)
     t_n = scene.tri_pos.shape[0]
     cols = [scene.tri_pos.reshape(t_n, 9), scene.tri_face_nrm,
             scene.tri_uv.reshape(t_n, 6),
             scene.tri_mat.to(torch.float32)[:, None]]
     if smooth:
         cols.append(scene.tri_nrm.reshape(t_n, 9))
-    rows = torch.cat(cols, dim=1)[safe]
+    rows = _rows(torch.cat(cols, dim=1), safe)
     v0, v1, v2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
     face_nrm = rows[:, 9:12]
     uv0, uv1, uv2 = rows[:, 12:14], rows[:, 14:16], rows[:, 16:18]
@@ -113,6 +158,65 @@ def shade_hits(scene, origin, direction, hit_idx, smooth: bool = False):
     return {"t": t, "bary": torch.stack([w, u, v], dim=-1),
             "world_position": world_pos, "normal": normal, "uv": uv,
             "material": mat, "front_face": front}
+
+
+class _KernelShade(torch.autograd.Function):
+    """Hit attributes whose forward value is the traversal kernel's
+    emission (kt, ku, kv, kuv, kfn: no wavefront triangle fetch) and
+    whose backward recomputes them through shade_hits (gathers by hit
+    id) and pulls the cotangents through that, so the kernel fetch
+    reaches tri_pos, tri_uv and the rays like the gather fetch.
+    Counterpart of the JAX package's `_kernel_shade` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, tri_pos, tri_uv, origin, direction, tri_face_nrm,
+                tri_mat, hit_idx, kt, ku, kv, kuv, kfn):
+        ctx.save_for_backward(tri_pos, tri_uv, origin, direction,
+                              tri_face_nrm, tri_mat, hit_idx)
+        ok = hit_idx >= 0
+        d_norm = direction / _norm(direction)
+        front = (kfn * d_norm).sum(dim=-1) <= 0.0
+        return (torch.where(ok, kt, 1.0), torch.where(ok, ku, 0.3),
+                torch.where(ok, kv, 0.3),
+                torch.where(front[:, None], kfn, -kfn), kuv.clone())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        *diff, tri_face_nrm, tri_mat, hit_idx = ctx.saved_tensors
+        ins = [x.detach().requires_grad_(need)
+               for x, need in zip(diff, ctx.needs_input_grad)]
+        geo = SimpleNamespace(tri_pos=ins[0], tri_uv=ins[1],
+                              tri_face_nrm=tri_face_nrm, tri_mat=tri_mat)
+        with torch.enable_grad():
+            sh = shade_hits(geo, ins[2], ins[3], hit_idx)
+            outs = (sh["t"], sh["bary"][:, 1], sh["bary"][:, 2],
+                    sh["normal"], sh["uv"])
+        # an output that depends on no differentiable input (the normal
+        # when only the rays are) is a constant: leave its cotangent out
+        pulled = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        live = [x for x in ins if x.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pulled], live,
+                                       [g for _, g in pulled],
+                                       allow_unused=True))
+        return (*(next(got) if x.requires_grad else None for x in ins),
+                *(None,) * 8)
+
+
+def _shade_from_kernel(scene, origin, direction, hit_idx, rec):
+    """shade_hits' dict assembled from the kernel's emitted attributes
+    (rec: t/u/v/uv/face_nrm/mat), differentiable through _KernelShade;
+    front_face is a discrete decision read off the emitted normal."""
+    t, u, v, normal, uv = _KernelShade.apply(
+        scene.tri_pos, scene.tri_uv, origin, direction, scene.tri_face_nrm,
+        scene.tri_mat, hit_idx, rec["t"], rec["u"], rec["v"], rec["uv"],
+        rec["face_nrm"])
+    w = 1.0 - u - v
+    d_norm = (direction / _norm(direction)).detach()
+    front = (rec["face_nrm"] * d_norm).sum(dim=-1) <= 0.0
+    return {"t": t, "bary": torch.stack([w, u, v], dim=-1),
+            "world_position": origin + direction * t[:, None],
+            "normal": normal, "uv": uv, "material": rec["mat"],
+            "front_face": front}
 
 
 def _sky(direction, lights: LightParams):
@@ -153,8 +257,9 @@ def ray_sort_key(lo, hi, o, d):
 
 def _sorted_tracers(scene, closest, anyhit):
     """Trace rays in ray_sort_key order (argsort + gather) and scatter
-    the results back to ray order, so neighbouring threads walk similar
-    paths through the tree. Invisible to callers."""
+    every result (the emitted attributes too) back to ray order, so
+    neighbouring threads walk similar paths through the tree. Invisible
+    to callers."""
     lo = scene.node_min[0]
     hi = scene.node_max[0]
 
@@ -183,7 +288,9 @@ def _sorted_tracers(scene, closest, anyhit):
 def _make_tracers(scene, settings: RenderSettings):
     """Pick the traversal backend: the sweep traversal (kernel on a
     card, twin on the CPU) for a cluster scene above brute_max_tris, or
-    for any cluster scene with traversal='sweep'."""
+    for any cluster scene with traversal='sweep'. The closest-hit tracer
+    emits the shading attributes when settings.shade_fetch == "kernel".
+    Both tracers detach their rays and run under no_grad."""
     cb = scene.cluster
     if cb is None:
         raise _not_ported("traversal of scenes without cluster tables "
@@ -195,15 +302,24 @@ def _make_tracers(scene, settings: RenderSettings):
         raise _not_ported("traversal='auto' on a scene at or below "
                           "brute_max_tris (the brute-force traversal)")
 
+    emit = settings.shade_fetch == "kernel"
+
     def closest(o, d):
-        return traverse_cluster_sweep(cb, o, d)
+        return traverse_cluster_sweep(cb, o, d, emit_attrs=emit)
 
     def anyhit(o, d):
         return traverse_cluster_sweep(cb, o, d, anyhit=True)["hit_idx"] >= 0
 
     if settings.ray_sort in ("auto", "on"):
         closest, anyhit = _sorted_tracers(scene, closest, anyhit)
-    return closest, anyhit
+
+    def _no_grad_in(f):  # the JAX package's _sg_in
+        def g(o, d):
+            with torch.no_grad():
+                return f(o.detach().contiguous(), d.detach().contiguous())
+        return g
+
+    return _no_grad_in(closest), _no_grad_in(anyhit)
 
 
 def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
@@ -214,7 +330,8 @@ def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
     sun_col = lights.sun_color * lights.sun_intensity
     trace_closest, trace_anyhit = tracers
 
-    o_live = torch.where(alive[:, None], origin, _PARK)
+    # dead lanes park far away (traversal only: shading sees `origin`)
+    o_live = torch.where(alive[:, None], origin.detach(), _PARK)
     res = trace_closest(o_live, direction)
     hit_idx = torch.where(alive, res["hit_idx"], -1)
     miss = hit_idx < 0
@@ -225,8 +342,11 @@ def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
     light = light + torch.where((alive & miss)[:, None],
                                 throughput * sky * lights.sky_intensity, 0.0)
 
-    sh = shade_hits(scene, origin, direction, hit_idx,
-                    smooth=settings.smooth_shading)
+    if settings.shade_fetch == "kernel":
+        sh = _shade_from_kernel(scene, origin, direction, hit_idx, res)
+    else:
+        sh = shade_hits(scene, origin, direction, hit_idx,
+                        smooth=settings.smooth_shading)
     matd = _fetch_material(scene, sh["material"])
     alb = _albedo(scene, matd, sh["uv"],
                   bilinear=settings.tex_filter == "bilinear")
@@ -237,7 +357,7 @@ def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
     if settings.enable_sunlight:
         rng, jit_vec = random_unit_vec3(rng)
         shadow_dir = sun_pos[None, :] + jit_vec * 1.5
-        nee_o = torch.where(live_hit[:, None], new_origin, _PARK)
+        nee_o = torch.where(live_hit[:, None], new_origin.detach(), _PARK)
         occluded = trace_anyhit(nee_o, shadow_dir)
         contrib = sun_col[None, :] * throughput
         if settings.nee_cosine:
@@ -272,13 +392,16 @@ def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
     return new_origin, bounce_dir, throughput, light, alive, rng
 
 
-@torch.no_grad()
 def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx: int,
                   pixel_ids: torch.Tensor, *, width: int, height: int,
                   settings: RenderSettings) -> torch.Tensor:
     """Render one sample for a flat batch of pixel ids -> (N, 3) colour,
-    on the scene's device."""
+    on the scene's device; differentiable in the scene's float tables,
+    the camera and the lights (wrap in torch.inference_mode() to render
+    without a graph)."""
     _check_settings(settings)
+    # resolve the fetch once, so the tracers and every segment agree
+    settings = settings.replace(shade_fetch=_resolve_fetch(scene, settings))
     n = pixel_ids.shape[0]
     dev = pixel_ids.device
     rng = seed_pixels(pixel_ids, frame_idx)

@@ -1,4 +1,5 @@
-"""Thin-lens camera and batched primary rays (port of scene/camera.py)."""
+"""Thin-lens camera and batched primary rays (port of scene/camera.py).
+The rays are differentiable in every camera field."""
 
 from __future__ import annotations
 
@@ -29,6 +30,9 @@ class Camera:
     def to(self, device) -> "Camera":
         return Camera(**{f.name: getattr(self, f.name).to(device)
                          for f in dataclasses.fields(self)})
+
+    def replace(self, **kw) -> "Camera":
+        return dataclasses.replace(self, **kw)
 
     def basis(self):
         """Orthonormal (forward, right, up) with world-up Y, falling back

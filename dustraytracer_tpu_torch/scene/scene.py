@@ -79,6 +79,37 @@ class Scene:
             moved["cluster"] = self.cluster.to(device)
         return dataclasses.replace(self, **moved)
 
+    def replace(self, **kw) -> "Scene":
+        """dataclasses.replace, with one guard: a new `tri_pos` re-bakes
+        the cluster tables (a new ClusterBvh, so no kernel table packed
+        from the old vertices is reused) unless `cluster` is passed too,
+        and refits the threaded BVH boxes unless `node_min` is. Raises
+        when the cluster tables have no refit plan. `tri_pos` may require
+        grad: shading differentiates it; the tables do not."""
+        if ("tri_pos" in kw and "cluster" not in kw
+                and self.cluster is not None):
+            if self.cluster.refit_a is None:
+                raise ValueError(
+                    "replacing tri_pos on a scene whose cluster tables "
+                    "have no refit plan (refit_a=None) would leave "
+                    "them stale; pass cluster=... explicitly")
+            from dustraytracer_tpu_torch.accel.cluster import \
+                refit_cluster_bvh
+
+            kw = dict(kw, cluster=refit_cluster_bvh(self.cluster,
+                                                    kw["tri_pos"]))
+        if ("tri_pos" in kw and "node_min" not in kw
+                and self.bvh_range_a is not None and self.bvh_levels):
+            from dustraytracer_tpu_torch.accel.bvh import refit_bvh_boxes
+
+            nm, nx = refit_bvh_boxes(
+                kw["tri_pos"], self.node_min, self.node_max,
+                levels=self.bvh_levels, range_a=self.bvh_range_a,
+                range_b=self.bvh_range_b, n_tris=self.n_tris,
+                n_nodes=self.n_nodes)
+            kw = dict(kw, node_min=nm, node_max=nx)
+        return dataclasses.replace(self, **kw)
+
     @property
     def device(self) -> torch.device:
         return self.tri_pos.device

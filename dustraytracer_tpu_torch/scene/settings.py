@@ -69,7 +69,8 @@ class RenderSettings:
 @dataclass
 class LightParams:
     """Lighting parameters as float32 tensors: sun direction angles,
-    colour and intensity, sky colour and intensity."""
+    colour and intensity, sky colour and intensity. Any leaf may be a
+    `requires_grad` tensor: the render differentiates through all six."""
 
     sun_azimuth: torch.Tensor
     sun_elevation: torch.Tensor
@@ -90,6 +91,9 @@ class LightParams:
     def to(self, device) -> "LightParams":
         return LightParams(**{f.name: getattr(self, f.name).to(device)
                               for f in dataclasses.fields(self)})
+
+    def replace(self, **kw) -> "LightParams":
+        return dataclasses.replace(self, **kw)
 
     def sun_position(self) -> torch.Tensor:
         """100 * (sin(az) * h, sin(el), cos(az) * h), h = 1 - sin(el):

@@ -24,8 +24,12 @@ def test_port_imports_without_jax():
         "import dustraytracer_tpu_torch.render.integrator\n"
         "import dustraytracer_tpu_torch.render.film\n"
         "import dustraytracer_tpu_torch.apps.cli\n"
+        "import dustraytracer_tpu_torch.apps.optimize\n"
+        "import dustraytracer_tpu_torch.parallel.shard\n"
+        "import dustraytracer_tpu_torch.utils.checkpoint\n"
         "import dustraytracer_tpu_torch.interop\n"
         "import dustraytracer_tpu_torch.utils.image\n"
+        "import dustraytracer_tpu_torch.tools.grad_bench\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dustraytracer_tpu' or m.startswith('dustraytracer_tpu.')]"
         "\nassert not bad, bad\n"

@@ -104,7 +104,6 @@ def test_save_png_pixels(tmp_path):
 NOT_PORTED = {
     "debug": dict(render_mode=RenderMode.DEBUG),
     "pbr": dict(shading="pbr"),
-    "kernel_fetch": dict(shade_fetch="kernel"),
     "soft_edges": dict(soft_edges=0.05),
     "alpha_test": dict(alpha_test=True),
     "brute": dict(traversal="brute"),
