@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's forward render and gradient paths
-(dustraytracer_tpu_torch) on a synthetic scene the size of a dense
-bundled scene, generated from a seed:
+Drives the port's forward render and gradient paths, every traversal
+backend and the build cache (dustraytracer_tpu_torch) on a synthetic
+scene the size of a dense bundled scene, generated from a seed:
 
   0. card      nvidia-smi name and power limit; fails without CUDA
-  1. build     nvcc build of csrc/traverse_sweep.cu for sm_90a
+  1. build     nvcc builds of csrc/traverse_sweep.cu, traverse_pallas.cu
+               and add_salt.cu for sm_90a, started together; ptxas lines
   2. scene     a displaced lat-long sphere (128 x 64 segments) over a
                textured ground (tools/grad_bench.py::sphere_doc), built
-               by the port's build_scene
+               by the port's build_scene; also its 16 x 8 variant (226
+               triangles) and the 128 x 64 one with an alpha cutout quad
   3. kernel    the traversal kernel against its PyTorch twin on the card:
                512x512 sorted primary rays, a bounce wave with 10% parked
                lanes, and any-hit shadow rays; equal hit ids, visits and
@@ -20,12 +22,32 @@ bundled scene, generated from a seed:
                visits and materials equal and t, u, v, uv, face normal bit
                for bit; against the kernel without emission, hit ids, t
                and visits identical; median times of both modes and twin
+  3c. counters the kernel's counting mode on the three waves: hit ids, t
+               and visits identical to the plain kernel's, exec_windows,
+               exec_leafs and leaf_tests equal to the twin's; median times
+               of both modes and the twin, the work the rays need
+               (utils/roofline.py), the bound and the roofline share
+  3p. pallas   the base-threading kernel (the TPU one-hot kernel's port) on
+               the same waves: hit ids equal and t bit for bit with its
+               twin, visits zero; hit ids equal to the sweep kernel's but
+               for exact t ties (counted); medians of it, its twin and
+               the sweep kernel, and its bound from the same work count
   4. slice     render_progressive at 512x512, 4 bounces, 8 spp; the shade
                fetch resolves to "kernel", so each bounce launches the
                kernel once with emission (closest) and once without
                (shadow any-hit): bounces x spp launches of each
   5. card/cpu  the same render at 96x96, 1 spp, on the card (kernel) and
                on the CPU (twin), within the render tolerance of the tests
+  5b. backends every settings.traversal at 96x96, 1 spp, on the card and
+               on the CPU within the same tolerance: auto (brute on the
+               16 x 8 sphere), brute (same scene), cluster, gather and
+               sweep (the 128 x 64 sphere); ms per sample at 512x512 b4,
+               one timed sample each (the plain-PyTorch walks take
+               seconds per sample)
+  5a. alpha    the cutout scene with alpha_test: render_progressive at
+               512x512 b4 8 spp through the sweep kernel and the re-trace
+               (launches, traces, mean rounds per trace, ms per sample);
+               card against CPU at 96x96; the cutout changes the image
   6. cli       the render CLI in a subprocess on a .glb of the scene
   7. grad      the bench's gradient step at 512x512, 4 bounces: mean image,
                backward to albedo, emissive, every light field, camera
@@ -40,10 +62,15 @@ bundled scene, generated from a seed:
   9. optimize  the optimizer CLI's self-test in a subprocess: 30 Adam
                steps on albedo and lights at 128x128, 2 bounces; the loss
                must fall and a checkpoint must be written
+ 10. cache_reload  tools/repro_cache_hang.py: four fresh processes build,
+               reload, die in nvcc and rebuild the add_salt kernel
+               (seconds and results of each)
 
-Each phase prints one JSON line; then a {"kernels": [...]} line, the
-nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failure
-raises and exits non-zero before the last line.
+Each kernel's launch counts are set to 0 just before the path that runs
+it and read just after. Each phase prints one JSON line; then a
+{"kernels": [...]} line, the nvidia-smi line and, last, {"ok": true,
+"device": {...}}. Any failure raises and exits non-zero before the last
+line.
 """
 
 from __future__ import annotations
@@ -77,6 +104,11 @@ LOSS_RTOL = 1e-5
 GRAD_RTOL = 2e-3     # tests/test_sweep.py:277; atol is 2e-4 * max|g|
 OPT_STEPS = 30
 OPT_BOUNCES = 2
+BACKEND_SIZE = 96
+TWIN_REPS = 3        # the plain-PyTorch walks take 0.1-0.5 s per wave
+SWEEP_KERNEL = "traverse_sweep_kernel"  # the device kernels' name stem
+KERNELS = ("traverse_sweep", "traverse_sweep[emit_attrs]",
+           "traverse_sweep[counters]", "traverse_pallas", "add_salt")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -141,9 +173,24 @@ def write_glb(path: Path, doc) -> None:
                      + struct.pack("<II", len(blob), 0x004E4942) + blob)
 
 
-def reset_launches(ts) -> None:
-    ts.LAUNCHES = 0
-    ts.EMIT_LAUNCHES = 0
+def reset_launches() -> None:
+    from dustraytracer_tpu_torch.ops import traverse_pallas as tp
+    from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+
+    ts.LAUNCHES = ts.EMIT_LAUNCHES = ts.COUNT_LAUNCHES = 0
+    tp.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    """Launches since reset_launches(), by kernel (add_salt runs only in
+    the cache-reload tool's child processes, which report their own)."""
+    from dustraytracer_tpu_torch.ops import traverse_pallas as tp
+    from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+
+    return {"traverse_sweep": ts.LAUNCHES,
+            "traverse_sweep[emit_attrs]": ts.EMIT_LAUNCHES,
+            "traverse_sweep[counters]": ts.COUNT_LAUNCHES,
+            "traverse_pallas": tp.LAUNCHES}
 
 
 def compare_images(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -163,6 +210,9 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dustraytracer_tpu_torch.ops import traverse_pallas as tp
     from dustraytracer_tpu_torch.ops import traverse_sweep as ts
     from dustraytracer_tpu_torch.ops.cuda_build import ARCH, load_library
     from dustraytracer_tpu_torch.ops.rng import seed_pixels
@@ -176,10 +226,15 @@ def main() -> int:
     from dustraytracer_tpu_torch.scene.scene import build_scene
     from dustraytracer_tpu_torch.scene.settings import (LightParams,
                                                         RenderSettings)
+    from dustraytracer_tpu_torch.tools import repro_cache_hang
     from dustraytracer_tpu_torch.tools.grad_bench import (GRAD_PARAMS, POSE,
+                                                          SMALL_SPHERE,
+                                                          device_ms,
                                                           grad_step,
                                                           median_ms,
                                                           sphere_doc)
+    from dustraytracer_tpu_torch.utils.roofline import (bound_seconds,
+                                                        nbytes, sweep_work)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -191,14 +246,22 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 1. build
-    rec = load_library("traverse_sweep")
+    # 1. build: one nvcc per source, all started together
+    srcs = ("traverse_sweep", "traverse_pallas", "add_salt")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        recs = dict(zip(srcs, pool.map(load_library, srcs)))
+    nvcc_s = time.perf_counter() - t0
     ts.load_kernel()
-    ptxas = [ln.strip() for ln in rec["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=rec["seconds"], built=rec["built"], arch=ARCH,
-         flags=rec["log"].splitlines()[0] if rec["log"] else "",
-         ptxas=ptxas)
+    tp.load_kernel()
+    for src_name, rec in recs.items():
+        ptxas = [ln.strip() for ln in rec["log"].splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
+        emit("build", source=f"csrc/{src_name}.cu", seconds=rec["seconds"],
+             built=rec["built"], arch=ARCH,
+             flags=rec["log"].splitlines()[0] if rec["log"] else "",
+             ptxas=ptxas, all_builds_seconds=nvcc_s)
 
     # 2. scene
     t0 = time.perf_counter()
@@ -209,6 +272,13 @@ def main() -> int:
     emit("scene", triangles=scene.n_tris, bvh_nodes=scene.n_nodes,
          clusters=cb.n_clusters, cluster_nodes=cb.n_nodes, k=cb.k,
          build_seconds=build_s)
+    small_cpu = build_scene(sphere_doc(*SMALL_SPHERE))
+    cut_cpu = build_scene(sphere_doc(cutout=True))
+    small, cut = small_cpu.to(dev), cut_cpu.to(dev)
+    emit("scene", name="small", triangles=small.n_tris,
+         padded_cluster_triangles=small.cluster.n_clusters * small.cluster.k)
+    emit("scene", name="cutout", triangles=cut.n_tris,
+         textures_with_alpha=int(cut.tex_has_alpha.sum()))
 
     # 3. kernel vs twin on the card
     settings = RenderSettings(bounces=BOUNCES)
@@ -241,9 +311,10 @@ def main() -> int:
 
     waves = {"primary": (o, d, False), "bounce": (bo, bd, False),
              "shadow_anyhit": (so, sd, True)}
-    results, max_err = {}, 0.0
+    results, max_err, plain_out = {}, 0.0, {}
     for wave, (wo, wd, ah) in waves.items():
         rk = ts.traverse_cluster_sweep(cb, wo, wd, anyhit=ah)
+        plain_out[wave] = rk
         rt = ts.traverse_cluster_sweep_reference(cb, wo, wd, anyhit=ah)
         torch.cuda.synchronize()
         hk, ht = rk["hit_idx"], rt["hit_idx"]
@@ -261,11 +332,15 @@ def main() -> int:
                                   rtol=T_RTOL, atol=0.0)),
               f"{wave}: t beyond rtol {T_RTOL}")
         max_err = max(max_err, err)
-        k_ms = median_ms(lambda: ts.traverse_cluster_sweep(cb, wo, wd,
-                                                           anyhit=ah))
+        k_ms = device_ms(lambda: ts.traverse_cluster_sweep(cb, wo, wd,
+                                                           anyhit=ah),
+                         SWEEP_KERNEL)
         p_ms = median_ms(lambda: ts.traverse_cluster_sweep_reference(
             cb, wo, wd, anyhit=ah))
-        results[wave] = {"kernel_ms": k_ms, "twin_ms": p_ms,
+        results[wave] = {
+            "kernel_ms": k_ms, "twin_ms": p_ms,
+            "kernel_call_ms": median_ms(lambda: ts.traverse_cluster_sweep(
+                cb, wo, wd, anyhit=ah)),
                          "kernel_mrays_s": n / k_ms / 1e3,
                          "twin_mrays_s": n / p_ms / 1e3}
         emit("kernel_vs_twin", wave=wave, rays=n, anyhit=ah,
@@ -295,11 +370,13 @@ def main() -> int:
             check(torch.equal(rk[key], rp[key]),
                   f"emit {wave}: {key} changes with emission")
         emit_err = max(emit_err, *errs.values())
+        if wave == "primary":
+            emit_bytes = nbytes(*rk.values())
         emit_res[wave] = {
-            "kernel_emit_ms": median_ms(lambda: ts.traverse_cluster_sweep(
-                cb, wo, wd, emit_attrs=True)),
-            "kernel_plain_ms": median_ms(lambda: ts.traverse_cluster_sweep(
-                cb, wo, wd)),
+            "kernel_emit_ms": device_ms(lambda: ts.traverse_cluster_sweep(
+                cb, wo, wd, emit_attrs=True), SWEEP_KERNEL),
+            "kernel_plain_ms": device_ms(lambda: ts.traverse_cluster_sweep(
+                cb, wo, wd), SWEEP_KERNEL),
             "twin_emit_ms": median_ms(
                 lambda: ts.traverse_cluster_sweep_reference(
                     cb, wo, wd, emit_attrs=True))}
@@ -307,13 +384,113 @@ def main() -> int:
              hits=int((rk["hit_idx"] >= 0).sum()), max_abs_err=errs,
              **emit_res[wave])
 
+    # 3c. K1's counting mode: its path is the counting call on each wave
+    reset_launches()
+    counted = {wave: ts.traverse_cluster_sweep(cb, wo, wd, anyhit=ah,
+                                               counters=True)
+               for wave, (wo, wd, ah) in waves.items()}
+    torch.cuda.synchronize()
+    launches = {"kernel_counters": read_launches()}
+    check(launches["kernel_counters"]["traverse_sweep[counters]"]
+          == len(waves), f"counting mode launched "
+          f"{launches['kernel_counters']}")
+    nodes_t, tris_t = ts.device_tables(cb)
+    sweep_tables = nbytes(nodes_t, tris_t)
+    work, count_res, count_err = {}, {}, 0.0
+    for wave, (wo, wd, ah) in waves.items():
+        rc, rp = counted[wave], plain_out[wave]
+        for key in ("hit_idx", "t", "visits"):
+            check(torch.equal(rc[key], rp[key]),
+                  f"counters {wave}: {key} differs from the plain kernel")
+        rt = ts.traverse_cluster_sweep_reference(cb, wo, wd, anyhit=ah,
+                                                 counters=True)
+        torch.cuda.synchronize()
+        for key in ("exec_windows", "exec_leafs", "leaf_tests", "visits"):
+            check(torch.equal(rc[key], rt[key]),
+                  f"counters {wave}: {key} differs from the twin in "
+                  f"{int((rc[key] != rt[key]).sum())} entries")
+        both = (rc["hit_idx"] >= 0) & (rt["hit_idx"] >= 0)
+        if bool(both.any()):
+            count_err = max(count_err, float(
+                (rc["t"][both] - rt["t"][both]).abs().max()))
+        work[wave] = sweep_work(rc, cb.k, sweep_tables)
+        bound_s, bound_by = bound_seconds(work[wave]["ops"],
+                                          work[wave]["bytes"])
+        c_ms = device_ms(lambda: ts.traverse_cluster_sweep(
+            cb, wo, wd, anyhit=ah, counters=True), SWEEP_KERNEL)
+        p_ms = device_ms(lambda: ts.traverse_cluster_sweep(cb, wo, wd,
+                                                           anyhit=ah),
+                         SWEEP_KERNEL)
+        t_ms = median_ms(lambda: ts.traverse_cluster_sweep_reference(
+            cb, wo, wd, anyhit=ah, counters=True), TWIN_REPS)
+        count_res[wave] = {"kernel_count_ms": c_ms, "kernel_plain_ms": p_ms,
+                           "twin_count_ms": t_ms, "bound_ms": bound_s * 1e3,
+                           "bound_by": bound_by,
+                           "roofline_share": bound_s * 1e3 / c_ms}
+        emit("kernel_counters", wave=wave, anyhit=ah, **count_res[wave],
+             **work[wave])
+
+    # 3p. K2: its path is traverse_cluster_pallas on each wave
+    reset_launches()
+    k2 = {wave: tp.traverse_cluster_pallas(cb, wo, wd, anyhit=ah)
+          for wave, (wo, wd, ah) in waves.items()}
+    torch.cuda.synchronize()
+    launches["kernel_pallas"] = read_launches()
+    check(launches["kernel_pallas"]["traverse_pallas"] == len(waves),
+          f"traverse_pallas launched {launches['kernel_pallas']}")
+    base_tables = nbytes(tp.device_base_nodes(cb), tris_t)
+    k2_res, k2_err = {}, 0.0
+    for wave, (wo, wd, ah) in waves.items():
+        r2, r1 = k2[wave], plain_out[wave]
+        rt = tp.traverse_cluster_pallas_reference(cb, wo, wd, anyhit=ah)
+        torch.cuda.synchronize()
+        check(torch.equal(r2["hit_idx"], rt["hit_idx"]),
+              f"pallas {wave}: hit_idx differs from the twin in "
+              f"{int((r2['hit_idx'] != rt['hit_idx']).sum())} rays")
+        check(torch.equal(r2["t"], rt["t"]),
+              f"pallas {wave}: t not bit for bit with the twin")
+        check(not bool(r2["visits"].any()) and not bool(rt["visits"].any()),
+              f"pallas {wave}: visits not all zero")
+        both = (r2["hit_idx"] >= 0) & (rt["hit_idx"] >= 0)
+        if bool(both.any()):
+            k2_err = max(k2_err, float(
+                (r2["t"][both] - rt["t"][both]).abs().max()))
+        if ah:  # first hits differ with the walk order; occlusion not
+            check(torch.equal(r2["hit_idx"] >= 0, r1["hit_idx"] >= 0),
+                  f"pallas {wave}: occlusion differs from the sweep kernel")
+            ties = 0
+        else:
+            differ = r2["hit_idx"] != r1["hit_idx"]
+            ties = int(differ.sum())
+            check(torch.equal(r2["t"][differ], r1["t"][differ]),
+                  f"pallas {wave}: hit_idx differs from the sweep kernel "
+                  f"in {ties} rays, not all exact t ties")
+        b_work = sweep_work(counted[wave], cb.k, base_tables,
+                            out_bytes=nbytes(*r2.values()))
+        bound_s, bound_by = bound_seconds(b_work["ops"], b_work["bytes"])
+        k_ms = device_ms(lambda: tp.traverse_cluster_pallas(cb, wo, wd,
+                                                            anyhit=ah),
+                         "traverse_pallas_kernel")
+        k2_res[wave] = {
+            "kernel_ms": k_ms,
+            "twin_ms": median_ms(
+                lambda: tp.traverse_cluster_pallas_reference(
+                    cb, wo, wd, anyhit=ah), TWIN_REPS),
+            "sweep_kernel_ms": device_ms(lambda: ts.traverse_cluster_sweep(
+                cb, wo, wd, anyhit=ah), SWEEP_KERNEL),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "roofline_share": bound_s * 1e3 / k_ms}
+        emit("kernel_pallas_vs_twin", wave=wave, rays=n, anyhit=ah,
+             hits=int((r2["hit_idx"] >= 0).sum()), max_abs_t_err=k2_err,
+             exact_t_ties_vs_sweep=ties, **k2_res[wave])
+
     # 4. the slice, through the user entry point
     fetch = _resolve_fetch(scene, settings)
     check(fetch == "kernel", f"shade_fetch 'auto' resolved to {fetch!r}")
     render_progressive(scene, camera, settings, width=WIDTH, height=HEIGHT,
                        spp=1)  # warm-up: allocator, packed tables
     torch.cuda.synchronize()
-    reset_launches(ts)
+    reset_launches()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -321,19 +498,20 @@ def main() -> int:
                               height=HEIGHT, spp=SPP)
     e1.record()
     torch.cuda.synchronize()
-    launches = {"slice": (ts.LAUNCHES, ts.EMIT_LAUNCHES)}
+    launches["slice"] = read_launches()
     ms = e0.elapsed_time(e1)
     img = film_image(film)
-    check(launches["slice"] == (BOUNCES * SPP, BOUNCES * SPP),
-          f"kernel launched {launches['slice']} times (plain, emit), "
-          f"expected {BOUNCES * SPP} each")
+    check(launches["slice"] == {**dict.fromkeys(launches["slice"], 0),
+                                "traverse_sweep": BOUNCES * SPP,
+                                "traverse_sweep[emit_attrs]": BOUNCES * SPP},
+          f"kernels launched {launches['slice']}, expected "
+          f"{BOUNCES * SPP} plain and {BOUNCES * SPP} emit")
     check(bool(torch.isfinite(img).all()), "render has non-finite pixels")
     mean = float(img.mean())
     check(0.0 < mean <= 1.0, f"render mean {mean} outside (0, 1]")
     check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"shape {img.shape}")
     emit("slice", size=[WIDTH, HEIGHT], bounces=BOUNCES, spp=SPP,
-         shade_fetch=fetch, launches=sum(launches["slice"]),
-         launches_emit=launches["slice"][1], mean=mean,
+         shade_fetch=fetch, launches=launches["slice"], mean=mean,
          ms_per_sample=ms / SPP,
          mrays_per_second=WIDTH * HEIGHT * SPP * 2 * BOUNCES / (ms / 1e3)
          / 1e6)
@@ -348,6 +526,98 @@ def main() -> int:
     check(cmp["frac_within"] >= PIX_FRAC and cmp["psnr_db"] > MIN_PSNR,
           f"card vs cpu render: {cmp}")
     emit("card_vs_cpu", size=[96, 96], spp=1, **cmp)
+
+    def timed_sample(sc, st):
+        """ms of one 512x512 sample, and the launches it made."""
+        reset_launches()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.inference_mode():
+            e0.record()
+            out = render_sample(sc, camera, lights, 1, width=WIDTH,
+                                height=HEIGHT, settings=st)
+            e1.record()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "non-finite sample")
+        return e0.elapsed_time(e1), read_launches()
+
+    def card_vs_cpu(sc, sc_cpu, st):
+        """The 96x96 sample on the card and on the CPU, compared; and the
+        card run's launches."""
+        b = BACKEND_SIZE
+        reset_launches()
+        with torch.inference_mode():
+            a = render_sample(sc, camera, lights, 0, width=b, height=b,
+                              settings=st)
+            torch.cuda.synchronize()
+            got = read_launches()
+            c = render_sample(sc_cpu, camera.to("cpu"), lights.to("cpu"), 0,
+                              width=b, height=b, settings=st)
+        res = compare_images(a, c)
+        check(res["frac_within"] >= PIX_FRAC and res["psnr_db"] > MIN_PSNR,
+              f"card vs cpu render ({st.traversal}, alpha_test="
+              f"{st.alpha_test}): {res}")
+        return a, res, got
+
+    # 5b. every traversal backend, card against CPU; brute on the small
+    # scene only
+    no_kernel = dict.fromkeys(read_launches(), 0)
+    backends = {}
+    for trav, sc, sc_cpu in (("auto", small, small_cpu),
+                             ("brute", small, small_cpu),
+                             ("cluster", scene, scene_cpu),
+                             ("gather", scene, scene_cpu),
+                             ("sweep", scene, scene_cpu)):
+        st = RenderSettings(bounces=BOUNCES, traversal=trav)
+        _, res, got = card_vs_cpu(sc, sc_cpu, st)
+        if trav == "sweep":
+            check(got == {**no_kernel, "traverse_sweep": BOUNCES,
+                          "traverse_sweep[emit_attrs]": BOUNCES},
+                  f"backend sweep launched {got}")
+        else:  # plain-PyTorch walks
+            check(got == no_kernel, f"backend {trav} launched {got}")
+        ms, got = timed_sample(sc, st)
+        launches[f"backend_{trav}"] = got
+        backends[trav] = ms
+        emit("backends", traversal=trav, triangles=sc.n_tris,
+             size_card_vs_cpu=[BACKEND_SIZE] * 2, **res,
+             ms_per_sample_512_b4=ms, launches_512=got)
+
+    # 5a. the alpha cutout through the sweep kernel and the re-trace
+    aset = RenderSettings(bounces=BOUNCES, alpha_test=True)
+    check(_resolve_fetch(cut, aset) == "gather", "alpha: fetch not gather")
+    render_progressive(cut, camera, aset, width=WIDTH, height=HEIGHT,
+                       spp=1)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    film = render_progressive(cut, camera, aset, width=WIDTH, height=HEIGHT,
+                              spp=SPP)
+    e1.record()
+    torch.cuda.synchronize()
+    launches["alpha"] = read_launches()
+    alpha_ms = e0.elapsed_time(e1) / SPP
+    traces = 2 * BOUNCES * SPP  # closest and shadow, each re-traced
+    used = launches["alpha"]["traverse_sweep"]
+    check(traces <= used <= traces * aset.alpha_rounds
+          and used == sum(launches["alpha"].values()),
+          f"alpha: launches {launches['alpha']} for {traces} traces")
+    a_img = film_image(film)
+    check(bool(torch.isfinite(a_img).all()), "alpha render not finite")
+    img_cut, res, _ = card_vs_cpu(cut, cut_cpu, aset)
+    with torch.inference_mode():
+        img_opaque = render_sample(cut, camera, lights, 0,
+                                   width=BACKEND_SIZE, height=BACKEND_SIZE,
+                                   settings=aset.replace(alpha_test=False))
+    means = (float(img_cut.mean()), float(img_opaque.mean()))
+    check(abs(means[0] - means[1]) > 1e-4,
+          f"alpha: the cutout does not change the image, means {means}")
+    emit("alpha", size=[WIDTH, HEIGHT], bounces=BOUNCES, spp=SPP,
+         launches=launches["alpha"], traces=traces,
+         mean_rounds_per_trace=used / traces,
+         alpha_rounds=aset.alpha_rounds, ms_per_sample=alpha_ms,
+         mean=float(a_img.mean()), mean_96_cutout=means[0],
+         mean_96_opaque=means[1], card_vs_cpu_96=res)
 
     tmp = tempfile.TemporaryDirectory()
     glb = Path(tmp.name) / "smoke_scene.glb"
@@ -383,14 +653,16 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    reset_launches(ts)
+    reset_launches()
     loss, grads = grad_step(scene, camera, lights, gset, WIDTH, HEIGHT)
     torch.cuda.synchronize()
-    launches["grad"] = (ts.LAUNCHES, ts.EMIT_LAUNCHES)
+    launches["grad"] = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    check(launches["grad"] == (BOUNCES, BOUNCES),
-          f"grad step launched {launches['grad']} (plain, emit), expected "
-          f"{BOUNCES} each")
+    check(launches["grad"] == {**dict.fromkeys(launches["grad"], 0),
+                               "traverse_sweep": BOUNCES,
+                               "traverse_sweep[emit_attrs]": BOUNCES},
+          f"grad step launched {launches['grad']}, expected {BOUNCES} "
+          "plain and emit")
     for k, g in grads.items():
         check(bool(torch.isfinite(g).all()), f"grad: {k} not finite")
     for k in ("mat_albedo", "sun_color", "sun_intensity", "sky_color",
@@ -420,8 +692,7 @@ def main() -> int:
           f"{g_full.tolist()} in the full step")
     rays = WIDTH * HEIGHT * 2 * BOUNCES
     emit("grad", size=[WIDTH, HEIGHT], bounces=BOUNCES, shade_fetch=fetch,
-         loss=float(loss), launches=sum(launches["grad"]),
-         launches_emit=launches["grad"][1], ms_per_step=step_ms,
+         loss=float(loss), launches=launches["grad"], ms_per_step=step_ms,
          rays_per_second=rays / (step_ms / 1e3),
          peak_mem_gib=peak / 2 ** 30,
          step_mem_gib=(peak - base_mem) / 2 ** 30,
@@ -469,36 +740,90 @@ def main() -> int:
     first, final = res["history"][0]["loss"], res["final_loss"]
     check(final < first, f"optimize: loss {first} -> {final} did not fall")
     check((out / "ckpt.npz").exists(), "optimize wrote no ckpt.npz")
-    launches["optimize"] = tuple(res["traversal_launches"])
-    check(launches["optimize"] == (OPT_STEPS * OPT_BOUNCES,
-                                   OPT_STEPS * OPT_BOUNCES),
-          f"optimize launched {launches['optimize']} (plain, emit), "
+    opt_launches = tuple(res["traversal_launches"])
+    check(opt_launches == (OPT_STEPS * OPT_BOUNCES, OPT_STEPS * OPT_BOUNCES),
+          f"optimize launched {opt_launches} (plain, emit), "
           f"expected {OPT_STEPS * OPT_BOUNCES} each")
+    launches["optimize"] = {"traverse_sweep": opt_launches[0],
+                            "traverse_sweep[emit_attrs]": opt_launches[1]}
     emit("optimize", steps=OPT_STEPS, size=[128, 128], bounces=OPT_BOUNCES,
          first_loss=first, final_loss=final,
          seconds_per_step=res["seconds_per_step"],
-         param_mae=res["param_mae"], launches=sum(launches["optimize"]),
+         param_mae=res["param_mae"], launches=launches["optimize"],
          wall_seconds=wall)
     tmp.cleanup()
 
-    by_path = {p: {"traverse_sweep": c[0], "traverse_sweep[emit_attrs]": c[1]}
-               for p, c in launches.items()}
-    src = "dustraytracer_tpu_torch/csrc/traverse_sweep.cu"
-    prim_t, prim_e = results["primary"], emit_res["primary"]
-    print(json.dumps({"kernels": [
-        {"name": "traverse_sweep", "route": "cuda", "source": src,
+    # 10. the build cache: four fresh processes build, reload, die in
+    # nvcc and rebuild the add_salt kernel; each reports its launches
+    reload = repro_cache_hang.run(timeout=240.0)
+    kids = {k["child"]: k for k in reload["children"]}
+    emit("cache_reload", ok=reload["ok"], salt=reload["salt"],
+         failures=reload["failures"],
+         children={t: {key: k.get(key) for key in (
+             "seconds", "built", "ok", "launches", "killed_during_nvcc",
+             "hung", "load_seconds", "ms", "plain_ms")}
+             for t, k in kids.items()})
+    check(reload["ok"], f"cache reload: {reload['failures']}")
+    launches["cache_reload"] = {"add_salt": sum(
+        kids[t]["launches"] for t in ("A", "B", "D"))}
+
+    prim = "primary"
+
+    def bound(out_bytes, tables):  # the primary wave's work in one mode
+        wk = sweep_work(counted[prim], cb.k, tables, out_bytes=out_bytes)
+        b_s, by = bound_seconds(wk["ops"], wk["bytes"])
+        return {"bound_ms": b_s * 1e3, "bound_by": by}
+
+    a_kid = kids["A"]
+    salt_bytes = 2 * 4 * 8 * 128
+    salt_bound, salt_by = bound_seconds(8 * 128, salt_bytes)
+    main = {"traverse_sweep": "grad", "traverse_sweep[emit_attrs]": "grad",
+            "traverse_sweep[counters]": "kernel_counters",
+            "traverse_pallas": "kernel_pallas", "add_salt": "cache_reload"}
+    src = "dustraytracer_tpu_torch/csrc/"
+    rows = [
+        {"name": "traverse_sweep", "source": src + "traverse_sweep.cu",
          "replaces": "dustraytracer_tpu/ops/traverse_sweep.py:98",
-         "launches": launches["grad"][0], "max_abs_err": max_err,
-         "ms": prim_t["kernel_ms"], "plain_ms": prim_t["twin_ms"],
-         "launches_by_path": {p: c["traverse_sweep"]
-                              for p, c in by_path.items()}},
-        {"name": "traverse_sweep[emit_attrs]", "route": "cuda",
-         "source": src,
+         "max_abs_err": max_err, "ms": results[prim]["kernel_ms"],
+         "plain_ms": results[prim]["twin_ms"],
+         **bound(nbytes(*plain_out[prim].values()), sweep_tables)},
+        {"name": "traverse_sweep[emit_attrs]",
+         "source": src + "traverse_sweep.cu",
          "replaces": "dustraytracer_tpu/ops/traverse_sweep.py:347",
-         "launches": launches["grad"][1], "max_abs_err": emit_err,
-         "ms": prim_e["kernel_emit_ms"], "plain_ms": prim_e["twin_emit_ms"],
-         "launches_by_path": {p: c["traverse_sweep[emit_attrs]"]
-                              for p, c in by_path.items()}}]}))
+         "max_abs_err": emit_err, "ms": emit_res[prim]["kernel_emit_ms"],
+         "plain_ms": emit_res[prim]["twin_emit_ms"],
+         **bound(emit_bytes, sweep_tables
+                 + nbytes(ts.device_attr_table(cb)))},
+        {"name": "traverse_sweep[counters]",
+         "source": src + "traverse_sweep.cu",
+         "replaces": "dustraytracer_tpu/ops/traverse_sweep.py:392",
+         "max_abs_err": count_err, "ms": count_res[prim]["kernel_count_ms"],
+         "plain_ms": count_res[prim]["twin_count_ms"],
+         "bound_ms": count_res[prim]["bound_ms"],
+         "bound_by": count_res[prim]["bound_by"]},
+        {"name": "traverse_pallas", "source": src + "traverse_pallas.cu",
+         "replaces": "dustraytracer_tpu/ops/traverse_pallas.py:45",
+         "max_abs_err": k2_err, "ms": k2_res[prim]["kernel_ms"],
+         "plain_ms": k2_res[prim]["twin_ms"],
+         "bound_ms": k2_res[prim]["bound_ms"],
+         "bound_by": k2_res[prim]["bound_by"]},
+        {"name": "add_salt", "source": src + "add_salt.cu",
+         "replaces": "tools/repro_cache_hang.py:52",
+         "max_abs_err": a_kid["max_abs_err"], "ms": a_kid["ms"],
+         "plain_ms": a_kid["plain_ms"], "bound_ms": salt_bound * 1e3,
+         "bound_by": salt_by, "library_ms": a_kid["plain_ms"]}]
+    for row in rows:
+        kernel = row["name"]
+        count = launches[main[kernel]].get(kernel, 0)
+        check(count > 0, f"{kernel} was not launched on its path "
+              f"{main[kernel]!r}")
+        row.update(route="cuda", launches=count,
+                   library_ms=row.get("library_ms"),
+                   launches_by_path={p: c[kernel]
+                                     for p, c in launches.items()
+                                     if kernel in c})
+    check([r["name"] for r in rows] == list(KERNELS), "kernel rows")
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

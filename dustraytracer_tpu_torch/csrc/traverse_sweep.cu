@@ -43,6 +43,18 @@
 // uv = (1-u-v)*uv0 + u*uv1 + v*uv2, face_nrm and mat; misses get zeros.
 // It is a template instance of the same kernel, so hit_idx, t and
 // visits do not depend on the mode.
+//
+// Count mode (the TPU kernel's per-tile executed-work counters
+// exec_windows / exec_leafs, traverse_sweep.py:141-142, :392-397): the
+// lockstep unit on this card is a warp of 32 consecutive rays, not a TPU
+// tile. A third template instance runs the same walk in a warp-uniform
+// loop (while (__any_sync(live))) so that a warp's iterations can be
+// counted: exec_windows[w] = loop iterations warp w executed (= max
+// visits over its lanes), exec_leafs[w] = iterations in which
+// __ballot_sync found at least one lane running the K-wide leaf test,
+// and leaf_tests[r] = leaves ray r tested. Lanes past n of the last
+// warp stay in the loop, inactive, so the warp votes stay full. The
+// plain and emit instances keep their per-thread loop and early return.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,38 +83,29 @@ struct EmitOut {
   int* mat;
 };
 
-template <bool kEmit>
-__global__ void __launch_bounds__(kBlock)
-traverse_sweep_kernel(const float* __restrict__ origin,
-                      const float* __restrict__ direction,
-                      const float* __restrict__ t_max, int n,
-                      const float4* __restrict__ nodes, int m,
-                      const float4* __restrict__ tris, int k, int anyhit,
-                      int* __restrict__ hit_out, float* __restrict__ t_out,
-                      int* __restrict__ visits_out, EmitOut emit) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const float ox = __ldg(origin + 3 * r + 0);
-  const float oy = __ldg(origin + 3 * r + 1);
-  const float oz = __ldg(origin + 3 * r + 2);
-  const float dx = __ldg(direction + 3 * r + 0);
-  const float dy = __ldg(direction + 3 * r + 1);
-  const float dz = __ldg(direction + 3 * r + 2);
-  const float inv_x = 1.0f / dx;
-  const float inv_y = 1.0f / dy;
-  const float inv_z = 1.0f / dz;
-  const int oct = (dx < 0.0f) * 4 + (dy < 0.0f) * 2 + (dz < 0.0f);
-  const float4* tab = nodes + (size_t)oct * m * 2;
+struct CountOut {
+  int* exec_windows;  // (ceil(n / 32),)
+  int* exec_leafs;    // (ceil(n / 32),)
+  int* leaf_tests;    // (n,)
+};
 
-  float hit_t = __ldg(t_max + r);
+// One ray's walk state and its step: stand on node i, slab-test it,
+// descend or skip, and at an entered leaf test its K triangles. Returns
+// whether this step ran the leaf test.
+template <bool kEmit>
+struct Walk {
+  float ox, oy, oz, dx, dy, dz, inv_x, inv_y, inv_z;
+  const float4* tab;
+  const float4* tris;
+  int k, anyhit;
+  float hit_t;
   int hit_idx = -1;
   int visits = 0;
   int win_c = 0, win_j = 0;  // emit mode: the committed hit's slot
   float win_u = 0.0f, win_v = 0.0f;
   int i = 0;
-  // pre-order pointers only move forward, so a walk ends within m steps;
-  // the bound only guards against a malformed table
-  for (int step = 0; i >= 0 && step < m + 4; ++step) {
+
+  __device__ __forceinline__ bool step() {
     const float4 lo = __ldg(tab + 2 * i);
     const float4 hi = __ldg(tab + 2 * i + 1);
     const int skip = __float_as_int(lo.w);
@@ -179,10 +182,69 @@ traverse_sweep_kernel(const float* __restrict__ origin,
       }
     }
     i = next;
+    return enter && cluster >= 0;
   }
+};
+
+template <bool kEmit, bool kCount>
+__global__ void __launch_bounds__(kBlock)
+traverse_sweep_kernel(const float* __restrict__ origin,
+                      const float* __restrict__ direction,
+                      const float* __restrict__ t_max, int n,
+                      const float4* __restrict__ nodes, int m,
+                      const float4* __restrict__ tris, int k, int anyhit,
+                      int* __restrict__ hit_out, float* __restrict__ t_out,
+                      int* __restrict__ visits_out, EmitOut emit,
+                      CountOut count) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kCount && r >= n) return;
+  // count mode: a lane past n reads ray 0 and never walks
+  const int q = (kCount && r >= n) ? 0 : r;
+  Walk<kEmit> w;
+  w.ox = __ldg(origin + 3 * q + 0);
+  w.oy = __ldg(origin + 3 * q + 1);
+  w.oz = __ldg(origin + 3 * q + 2);
+  w.dx = __ldg(direction + 3 * q + 0);
+  w.dy = __ldg(direction + 3 * q + 1);
+  w.dz = __ldg(direction + 3 * q + 2);
+  w.inv_x = 1.0f / w.dx;
+  w.inv_y = 1.0f / w.dy;
+  w.inv_z = 1.0f / w.dz;
+  const int oct = (w.dx < 0.0f) * 4 + (w.dy < 0.0f) * 2 + (w.dz < 0.0f);
+  w.tab = nodes + (size_t)oct * m * 2;
+  w.tris = tris;
+  w.k = k;
+  w.anyhit = anyhit;
+  w.hit_t = __ldg(t_max + q);
+  // pre-order pointers only move forward, so a walk ends within m steps;
+  // the bound only guards against a malformed table
+  if (!kCount) {
+    for (int step = 0; w.i >= 0 && step < m + 4; ++step) w.step();
+  } else {
+    if (r >= n) w.i = -1;
+    int windows = 0, leafs = 0, tests = 0;
+    for (int step = 0;; ++step) {
+      const bool live = w.i >= 0 && step < m + 4;
+      if (!__any_sync(0xffffffffu, live)) break;
+      const bool leaf = live && w.step();
+      ++windows;
+      if (__ballot_sync(0xffffffffu, leaf) != 0u) ++leafs;
+      tests += leaf;
+    }
+    if (r >= n) return;
+    count.leaf_tests[r] = tests;
+    if ((threadIdx.x & 31) == 0) {
+      count.exec_windows[r >> 5] = windows;
+      count.exec_leafs[r >> 5] = leafs;
+    }
+  }
+  const int hit_idx = w.hit_idx;
+  const float hit_t = w.hit_t;
+  const int win_c = w.win_c, win_j = w.win_j;
+  const float win_u = w.win_u, win_v = w.win_v;
   hit_out[r] = hit_idx;
   t_out[r] = hit_t;
-  visits_out[r] = visits;
+  visits_out[r] = w.visits;
   if (kEmit) {
     float uvx = 0.0f, uvy = 0.0f, fx = 0.0f, fy = 0.0f, fz = 0.0f;
     int mat = 0;
@@ -214,26 +276,39 @@ traverse_sweep_kernel(const float* __restrict__ origin,
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). A
 // non-null `attrs` selects emit mode, which then writes u, v, uv,
-// face_nrm and mat; with a null `attrs` those pointers are not read.
+// face_nrm and mat; a non-null `exec_windows` selects count mode, which
+// writes exec_windows, exec_leafs and leaf_tests. The two modes are
+// exclusive; the pointers of a mode that is off are not read.
 extern "C" int drt_traverse_sweep(const float* origin, const float* direction,
                                   const float* t_max, int n,
                                   const void* nodes, int m, const void* tris,
                                   int k, int anyhit, int* hit_idx, float* t,
                                   int* visits, const void* attrs, float* u,
                                   float* v, float* uv, float* face_nrm,
-                                  int* mat, void* stream) {
+                                  int* mat, int* exec_windows,
+                                  int* exec_leafs, int* leaf_tests,
+                                  void* stream) {
   if (n <= 0) return 0;
+  if (attrs != nullptr && exec_windows != nullptr)
+    return (int)cudaErrorInvalidValue;
   const int blocks = (n + kBlock - 1) / kBlock;
   const EmitOut emit{(const float4*)attrs, u, v, uv, face_nrm, mat};
+  const CountOut count{exec_windows, exec_leafs, leaf_tests};
+  cudaStream_t s = (cudaStream_t)stream;
+  const float4* nd = (const float4*)nodes;
+  const float4* tr = (const float4*)tris;
   if (attrs != nullptr) {
-    traverse_sweep_kernel<true><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-        origin, direction, t_max, n, (const float4*)nodes, m,
-        (const float4*)tris, k, anyhit, hit_idx, t, visits, emit);
+    traverse_sweep_kernel<true, false><<<blocks, kBlock, 0, s>>>(
+        origin, direction, t_max, n, nd, m, tr, k, anyhit, hit_idx, t,
+        visits, emit, count);
+  } else if (exec_windows != nullptr) {
+    traverse_sweep_kernel<false, true><<<blocks, kBlock, 0, s>>>(
+        origin, direction, t_max, n, nd, m, tr, k, anyhit, hit_idx, t,
+        visits, emit, count);
   } else {
-    traverse_sweep_kernel<false><<<blocks, kBlock, 0,
-                                   (cudaStream_t)stream>>>(
-        origin, direction, t_max, n, (const float4*)nodes, m,
-        (const float4*)tris, k, anyhit, hit_idx, t, visits, emit);
+    traverse_sweep_kernel<false, false><<<blocks, kBlock, 0, s>>>(
+        origin, direction, t_max, n, nd, m, tr, k, anyhit, hit_idx, t,
+        visits, emit, count);
   }
   return (int)cudaGetLastError();
 }

@@ -14,8 +14,14 @@ the winning hit's barycentric "u", "v" (N,), interpolated "uv" (N, 2),
 oriented "face_nrm" (N, 3) and material "mat" (N,) i32, read once per
 ray from the cluster attribute tables; misses get zeros.
 
-The TPU kernel's per-tile work counters (exec_windows, exec_leafs) are
-not ported yet.
+With `counters=True` (a third kernel instance; exclusive with
+emit_attrs) they also return the executed work: "exec_windows" and
+"exec_leafs" (ceil(N/32),) i32 and "leaf_tests" (N,) i32. The TPU
+kernel counts per ray tile; the lockstep unit on the card is a warp of
+32 consecutive rays, so here exec_windows[w] is the loop iterations warp
+w executed (max visits over its lanes), exec_leafs[w] the iterations in
+which at least one of its lanes ran the K-wide leaf test, and
+leaf_tests[r] the leaves ray r tested. utils/roofline.py prices them.
 """
 
 from __future__ import annotations
@@ -30,9 +36,12 @@ BIG = 3.4e38
 _NO_ID = 2 ** 30
 
 # kernel launches since import (or since a caller reset them), closest
-# or any-hit without emission and with emit_attrs; the twin never counts
+# or any-hit without emission, with emit_attrs, and with counters; the
+# twin never counts
 LAUNCHES = 0
 EMIT_LAUNCHES = 0
+COUNT_LAUNCHES = 0
+WARP = 32  # the lockstep unit of the counters
 
 
 def _octant(d: torch.Tensor) -> torch.Tensor:
@@ -81,16 +90,68 @@ def _t_init(t_max, n: int, device) -> torch.Tensor:
     return torch.broadcast_to(t, (n,)).contiguous()
 
 
-def _check_attrs(cb: ClusterBvh, emit_attrs: bool):
+def _check_attrs(cb: ClusterBvh, emit_attrs: bool, counters: bool = False):
+    if emit_attrs and counters:
+        raise ValueError("emit_attrs and counters are separate kernel "
+                         "modes; ask for one")
     if emit_attrs and cb.uv is None:
         raise ValueError("emit_attrs requires attribute tables "
                          "(build_cluster_bvh uv/face_nrm/mat)")
 
 
+def slab_enter(lo, hi, o, inv, cur_t):
+    """The CUDA kernels' slab test of L rays (o, inv: (L, 3)) against
+    their boxes (lo, hi: (L, 3)), in their operation order: whether each
+    ray enters its box before its current hit t (L,). fmin/fmax drop a
+    NaN operand, maximum/minimum keep it, as in the kernels."""
+    tx0 = (lo[:, 0] - o[:, 0]) * inv[:, 0]
+    tx1 = (hi[:, 0] - o[:, 0]) * inv[:, 0]
+    ty0 = (lo[:, 1] - o[:, 1]) * inv[:, 1]
+    ty1 = (hi[:, 1] - o[:, 1]) * inv[:, 1]
+    tz0 = (lo[:, 2] - o[:, 2]) * inv[:, 2]
+    tz1 = (hi[:, 2] - o[:, 2]) * inv[:, 2]
+    t_lo = torch.maximum(torch.maximum(torch.fmin(tx0, tx1),
+                                       torch.fmin(ty0, ty1)),
+                         torch.fmin(tz0, tz1))
+    t_hi = torch.minimum(torch.minimum(torch.fmax(tx0, tx1),
+                                       torch.fmax(ty0, ty1)),
+                         torch.fmax(tz0, tz1))
+    t_enter = torch.clamp_min(t_lo, 0.0)
+    return (t_enter <= t_hi) & (t_hi >= 0.0) & (t_enter < cur_t)
+
+
+def cluster_mt(cb: ClusterBvh, cl, o, d):
+    """Möller–Trumbore of L rays (o, d: (L, 3)) against the K triangles
+    of their clusters `cl` (L,), in the CUDA kernels' operation order, one
+    rounding each -> (parallel, u, v, t), each (L, K)."""
+    v0, e1, e2 = cb.v0[cl], cb.e1[cl], cb.e2[cl]  # (L, K, 3)
+    rx, ry, rz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    sx, sy, sz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
+    e2x, e2y, e2z = e2[..., 0], e2[..., 1], e2[..., 2]
+    px = ry * e2z - rz * e2y
+    py = rz * e2x - rx * e2z
+    pz = rx * e2y - ry * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    par = det.abs() < 1e-6
+    inv_det = 1.0 / torch.where(par, torch.ones_like(det), det)
+    tvx = sx - v0[..., 0]
+    tvy = sy - v0[..., 1]
+    tvz = sz - v0[..., 2]
+    u = inv_det * (tvx * px + tvy * py + tvz * pz)
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    v = inv_det * (rx * qx + ry * qy + rz * qz)
+    tt = inv_det * (e2x * qx + e2y * qy + e2z * qz)
+    return par, u, v, tt
+
+
 @torch.no_grad()
 def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
                                      anyhit: bool = False, t_max=None,
-                                     emit_attrs: bool = False):
+                                     emit_attrs: bool = False,
+                                     counters: bool = False):
     """Plain PyTorch twin of the CUDA kernel: a lockstep per-lane walk.
 
     Every lane holds its own node pointer into its octant's threading;
@@ -99,9 +160,11 @@ def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
     the lanes that entered a leaf. Operations are in the kernel's order,
     one rounding each, so on the card the two agree bit for bit. With
     emit_attrs, a commit also records the winning slot and its u, v, and
-    the attributes are read once per ray after the walk."""
+    the attributes are read once per ray after the walk. With counters,
+    iteration s of the loop is step s of every live lane, as it is
+    iteration s of each warp's loop in the kernel."""
     _check_rays(cb, origin, direction)
-    _check_attrs(cb, emit_attrs)
+    _check_attrs(cb, emit_attrs, counters)
     n = origin.shape[0]
     dev = origin.device
     box_lo, box_hi, skip_t, clus_t = _oct_tables(cb)
@@ -111,6 +174,10 @@ def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
     hit_t = _t_init(t_max, n, dev).clone()
     hit_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
     visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if counters:
+        n_warps = -(-n // WARP)
+        exec_leafs = torch.zeros((n_warps,), dtype=torch.int32, device=dev)
+        leaf_tests = torch.zeros((n,), dtype=torch.int32, device=dev)
     if emit_attrs:  # winner's cluster (-1 = none), slot, u, v
         win_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
         win_j = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -120,9 +187,7 @@ def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
     lanes = torch.arange(n, device=dev)
     node = torch.zeros((n,), dtype=torch.int64, device=dev)
     base = _octant(direction) * m
-    ox, oy, oz = origin[:, 0], origin[:, 1], origin[:, 2]
-    dx, dy, dz = direction[:, 0], direction[:, 1], direction[:, 2]
-    inv_x, inv_y, inv_z = 1.0 / dx, 1.0 / dy, 1.0 / dz
+    inv_dir = 1.0 / direction
 
     for _ in range(m + 4):  # pointers only move forward: <= m steps
         if not lanes.numel():
@@ -131,51 +196,20 @@ def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
         lo, hi = box_lo[row], box_hi[row]
         skip, cluster = skip_t[row], clus_t[row]
         visits[lanes] += 1
-        lox, loy, loz = ox[lanes], oy[lanes], oz[lanes]
-        ix, iy, iz = inv_x[lanes], inv_y[lanes], inv_z[lanes]
-        tx0 = (lo[:, 0] - lox) * ix
-        tx1 = (hi[:, 0] - lox) * ix
-        ty0 = (lo[:, 1] - loy) * iy
-        ty1 = (hi[:, 1] - loy) * iy
-        tz0 = (lo[:, 2] - loz) * iz
-        tz1 = (hi[:, 2] - loz) * iz
-        t_lo = torch.maximum(torch.maximum(torch.fmin(tx0, tx1),
-                                           torch.fmin(ty0, ty1)),
-                             torch.fmin(tz0, tz1))
-        t_hi = torch.minimum(torch.minimum(torch.fmax(tx0, tx1),
-                                           torch.fmax(ty0, ty1)),
-                             torch.fmax(tz0, tz1))
-        t_enter = torch.clamp_min(t_lo, 0.0)
         cur_t = hit_t[lanes]
-        enter = (t_enter <= t_hi) & (t_hi >= 0.0) & (t_enter < cur_t)
+        enter = slab_enter(lo, hi, origin[lanes], inv_dir[lanes], cur_t)
         is_leaf = cluster >= 0
         nxt = torch.where(enter & ~is_leaf, node + 1, skip)
 
         at_leaf = torch.nonzero(enter & is_leaf).squeeze(1)
         if at_leaf.numel():
             ll = lanes[at_leaf]
+            if counters:
+                leaf_tests[ll] += 1
+                exec_leafs[torch.unique(ll // WARP)] += 1
             cl = cluster[at_leaf]
-            v0, e1, e2 = cb.v0[cl], cb.e1[cl], cb.e2[cl]  # (L, K, 3)
             tri_id = cb.tri_idx[cl]                        # (L, K)
-            rx, ry, rz = (dx[ll][:, None], dy[ll][:, None], dz[ll][:, None])
-            sx, sy, sz = (ox[ll][:, None], oy[ll][:, None], oz[ll][:, None])
-            e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
-            e2x, e2y, e2z = e2[..., 0], e2[..., 1], e2[..., 2]
-            px = ry * e2z - rz * e2y
-            py = rz * e2x - rx * e2z
-            pz = rx * e2y - ry * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            par = det.abs() < 1e-6
-            inv_det = 1.0 / torch.where(par, torch.ones_like(det), det)
-            tvx = sx - v0[..., 0]
-            tvy = sy - v0[..., 1]
-            tvz = sz - v0[..., 2]
-            u = inv_det * (tvx * px + tvy * py + tvz * pz)
-            qx = tvy * e1z - tvz * e1y
-            qy = tvz * e1x - tvx * e1z
-            qz = tvx * e1y - tvy * e1x
-            v = inv_det * (rx * qx + ry * qy + rz * qz)
-            tt = inv_det * (e2x * qx + e2y * qy + e2z * qz)
+            par, u, v, tt = cluster_mt(cb, cl, origin[ll], direction[ll])
             leaf_t = cur_t[at_leaf][:, None]
             valid = (~par) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) \
                 & (u + v <= 1.0) & (tt > 1e-6) & (tri_id >= 0) & (tt < leaf_t)
@@ -203,6 +237,13 @@ def traverse_cluster_sweep_reference(cb: ClusterBvh, origin, direction, *,
         lanes, node = lanes[live], node[live]
 
     out = {"hit_idx": hit_idx, "t": hit_t, "visits": visits}
+    if counters:
+        pad = torch.zeros((n_warps * WARP - n,), dtype=torch.int32,
+                          device=dev)
+        out.update({
+            "exec_windows": torch.cat([visits, pad]).view(-1, WARP)
+            .amax(dim=1),
+            "exec_leafs": exec_leafs, "leaf_tests": leaf_tests})
     if emit_attrs:
         hit = (win_c >= 0)[:, None]
         c_safe = torch.clamp_min(win_c, 0)
@@ -228,7 +269,8 @@ def load_kernel():
     if not getattr(lib, "_drt_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.drt_traverse_sweep.argtypes = [p, p, p, i, p, i, p, i, i,
-                                           p, p, p, p, p, p, p, p, p, p]
+                                           p, p, p, p, p, p, p, p, p,
+                                           p, p, p, p]
         lib.drt_traverse_sweep.restype = ctypes.c_int
         lib.drt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.drt_cuda_error_string.restype = ctypes.c_char_p
@@ -285,8 +327,8 @@ def device_attr_table(cb: ClusterBvh):
 
 @torch.no_grad()
 def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
-            emit_attrs: bool):
-    global LAUNCHES, EMIT_LAUNCHES
+            emit_attrs: bool, counters: bool):
+    global LAUNCHES, EMIT_LAUNCHES, COUNT_LAUNCHES
     n = origin.shape[0]
     dev = origin.device
     t0 = _t_init(t_max, n, dev)
@@ -300,13 +342,21 @@ def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
             "uv": torch.empty((n, 2), dtype=torch.float32, device=dev),
             "face_nrm": torch.empty((n, 3), dtype=torch.float32, device=dev),
             "mat": torch.empty((n,), dtype=torch.int32, device=dev)})
+    if counters:
+        n_warps = -(-n // WARP)
+        out.update({
+            "exec_windows": torch.zeros((n_warps,), dtype=torch.int32,
+                                        device=dev),
+            "exec_leafs": torch.zeros((n_warps,), dtype=torch.int32,
+                                      device=dev),
+            "leaf_tests": torch.zeros((n,), dtype=torch.int32, device=dev)})
     if n == 0:
         out["t"] = t0
         return out
     nodes, tris = device_tables(cb)
     attrs = device_attr_table(cb) if emit_attrs else None
 
-    def ptr(key):  # NULL for the emit outputs when emission is off
+    def ptr(key):  # NULL for the outputs of a mode that is off
         return out[key].data_ptr() if key in out else None
 
     lib = load_kernel()
@@ -317,13 +367,16 @@ def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
             nodes.data_ptr(), cb.n_nodes, tris.data_ptr(), cb.k,
             1 if anyhit else 0, ptr("hit_idx"), ptr("t"), ptr("visits"),
             None if attrs is None else attrs.data_ptr(), ptr("u"), ptr("v"),
-            ptr("uv"), ptr("face_nrm"), ptr("mat"), stream)
+            ptr("uv"), ptr("face_nrm"), ptr("mat"), ptr("exec_windows"),
+            ptr("exec_leafs"), ptr("leaf_tests"), stream)
     if err != 0:
         msg = lib.drt_cuda_error_string(err).decode()
         raise RuntimeError(f"traverse_sweep kernel launch failed: {msg} "
                            f"(cudaError {err})")
     if emit_attrs:
         EMIT_LAUNCHES += 1
+    elif counters:
+        COUNT_LAUNCHES += 1
     else:
         LAUNCHES += 1
     return out
@@ -331,21 +384,25 @@ def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
 
 def traverse_cluster_sweep(cb: ClusterBvh, origin, direction, *,
                            anyhit: bool = False, t_max=None,
-                           emit_attrs: bool = False) -> dict:
+                           emit_attrs: bool = False,
+                           counters: bool = False) -> dict:
     """Closest-hit (or any-hit) traversal of the cluster BVH.
 
     origin/direction: contiguous (N, 3) float32 on one device; t_max: a
     scalar or (N,) initial t per ray (default 3.4e38); emit_attrs: also
-    return the winner's u, v, uv, face_nrm, mat (needs cb.uv). A CUDA
-    tensor launches the kernel (a failed build or launch raises); a CPU
-    tensor runs the twin."""
+    return the winner's u, v, uv, face_nrm, mat (needs cb.uv); counters:
+    also return exec_windows, exec_leafs (per warp of 32 rays) and
+    leaf_tests (per ray). A CUDA tensor launches the kernel (a failed
+    build or launch raises); a CPU tensor runs the twin."""
     _check_rays(cb, origin, direction)
-    _check_attrs(cb, emit_attrs)
+    _check_attrs(cb, emit_attrs, counters)
     if origin.device.type == "cuda":
-        return _launch(cb, origin, direction, anyhit, t_max, emit_attrs)
+        return _launch(cb, origin, direction, anyhit, t_max, emit_attrs,
+                       counters)
     if origin.device.type == "cpu":
         return traverse_cluster_sweep_reference(cb, origin, direction,
                                                 anyhit=anyhit, t_max=t_max,
-                                                emit_attrs=emit_attrs)
+                                                emit_attrs=emit_attrs,
+                                                counters=counters)
     raise ValueError(f"traverse_cluster_sweep: unsupported device "
                      f"{origin.device}")

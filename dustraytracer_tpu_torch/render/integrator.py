@@ -5,18 +5,22 @@ One sample for N pixels is a wavefront: camera rays, then `bounces`
 path segments, each of which traces closest hits, adds sky on a miss,
 multiplies the throughput by the (textured) albedo, adds the sun through
 an any-hit shadow ray, and bounces diffusely; finally tonemap and gamma.
-Traversal goes through ops/traverse_sweep.py (the CUDA kernel on a card,
-its twin on the CPU), with rays sorted by (direction octant, origin
-Morton) first. It is a discrete selector: it gets detached rays and runs
-under no_grad. Autograd runs through the shading, which gets the hit
-attributes either by gathers from the hit ids (shade_fetch="gather") or
-from the kernel's in-kernel fetch (shade_fetch="kernel"), whose backward
-recomputes them through shade_hits (_KernelShade). Gradients reach materials,
-lights, camera and vertex positions.
+Traversal is picked per scene and settings.traversal (`_make_tracers`):
+all-pairs brute force for small scenes, the sweep traversal
+(ops/traverse_sweep.py: the CUDA kernel on a card, its twin on the CPU)
+with rays sorted by (direction octant, origin Morton) first, the
+lockstep cluster walk, or the gather walk of the scene BVH; alpha_test
+cuts out transparent texels, inside the gather walk or by re-tracing
+past them on the cluster paths. It is a discrete selector: it gets
+detached rays and runs under no_grad. Autograd runs through the
+shading, which gets the hit attributes either by gathers from the hit
+ids (shade_fetch="gather") or from the kernel's in-kernel fetch
+(shade_fetch="kernel"), whose backward recomputes them through
+shade_hits (_KernelShade). Gradients reach materials, lights, camera
+and vertex positions.
 
 Options the port does not run yet raise NotImplementedError: the debug
-views, shading="pbr", soft_edges, alpha_test, and the brute-force,
-gather-walk and XLA-cluster traversals.
+views, shading="pbr" and soft_edges.
 """
 
 from __future__ import annotations
@@ -30,6 +34,11 @@ from dustraytracer_tpu_torch.ops.rng import (random_float, random_in_ball,
                                              random_unit_vec3, seed_pixels)
 from dustraytracer_tpu_torch.ops.tonemap import (gamma_correct,
                                                  uncharted2_filmic)
+from dustraytracer_tpu_torch.ops.traverse import (_sample_alpha,
+                                                  traverse_anyhit,
+                                                  traverse_closest)
+from dustraytracer_tpu_torch.ops.traverse_brute import traverse_brute
+from dustraytracer_tpu_torch.ops.traverse_cluster import traverse_cluster
 from dustraytracer_tpu_torch.ops.traverse_sweep import traverse_cluster_sweep
 from dustraytracer_tpu_torch.render.texture import sample_texture
 from dustraytracer_tpu_torch.scene.camera import Camera, generate_rays
@@ -37,6 +46,7 @@ from dustraytracer_tpu_torch.scene.settings import (LightParams, RenderMode,
                                                     RenderSettings)
 
 _PARK = 3.0e37  # origin of dead lanes: their walk ends at the root
+TRAVERSALS = ("auto", "sweep", "cluster", "brute", "gather")
 
 
 def _not_ported(what: str):
@@ -50,8 +60,9 @@ def _check_settings(settings: RenderSettings):
         raise _not_ported(f"shading={settings.shading!r}")
     if settings.soft_edges > 0.0:
         raise _not_ported("soft_edges")
-    if settings.alpha_test:
-        raise _not_ported("alpha_test")
+    if settings.traversal not in TRAVERSALS:
+        raise ValueError(f"settings.traversal={settings.traversal!r} is "
+                         f"none of {TRAVERSALS}")
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -285,33 +296,129 @@ def _sorted_tracers(scene, closest, anyhit):
     return closest_sorted, anyhit_sorted
 
 
-def _make_tracers(scene, settings: RenderSettings):
-    """Pick the traversal backend: the sweep traversal (kernel on a
-    card, twin on the CPU) for a cluster scene above brute_max_tris, or
-    for any cluster scene with traversal='sweep'. The closest-hit tracer
-    emits the shading attributes when settings.shade_fetch == "kernel".
-    Both tracers detach their rays and run under no_grad."""
-    cb = scene.cluster
-    if cb is None:
-        raise _not_ported("traversal of scenes without cluster tables "
-                          "(the gather walk)")
-    if settings.traversal not in ("auto", "sweep"):
-        raise _not_ported(f"traversal={settings.traversal!r}")
-    if (settings.traversal == "auto"
-            and cb.n_clusters * cb.k <= settings.brute_max_tris):
-        raise _not_ported("traversal='auto' on a scene at or below "
-                          "brute_max_tris (the brute-force traversal)")
+def _alpha_retrace_tracers(scene, fast_closest, rounds: int):
+    """Alpha cutout on the cluster paths, whose tables carry geometry
+    only: trace, sample the albedo alpha at each hit, and re-trace the
+    rays whose hit was transparent from just past it, for at most
+    `rounds` rounds; a ray still unresolved then counts as a miss. Hit t
+    is measured from the original origin, visits add up over rounds, and
+    any-hit is "a closest hit exists". Each round traces only the rays
+    still unresolved: a ray's result depends on its own origin alone, so
+    this is the JAX package's full-wave round with less work."""
 
-    emit = settings.shade_fetch == "kernel"
+    def _alpha_at(o, d, hit_idx):
+        safe = torch.clamp_min(hit_idx, 0).to(torch.int64)
+        tri = scene.tri_pos[safe]
+        _ok, _t, u, v = moller_trumbore(o, d, tri[:, 0], tri[:, 1],
+                                        tri[:, 2])
+        tuv = scene.tri_uv[safe]
+        w = 1.0 - u - v
+        uv = w[:, None] * tuv[:, 0] + u[:, None] * tuv[:, 1] \
+            + v[:, None] * tuv[:, 2]
+        tex = scene.mat_albedo_tex[scene.tri_mat[safe].to(torch.int64)]
+        return _sample_alpha(scene, tex, uv)
 
     def closest(o, d):
-        return traverse_cluster_sweep(cb, o, d, emit_attrs=emit)
+        n = o.shape[0]
+        dev = o.device
+        cur_o = o.clone()
+        off = torch.zeros((n,), dtype=torch.float32, device=dev)
+        idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        tt = torch.full((n,), 3.4e38, dtype=torch.float32, device=dev)
+        vis = torch.zeros((n,), dtype=torch.int32, device=dev)
+        live = torch.arange(n, device=dev)
+        for _ in range(rounds):
+            if not live.numel():
+                break
+            lo, ld = cur_o[live], d[live]
+            r = fast_closest(lo, ld)
+            hit = r["hit_idx"] >= 0
+            accept = hit & (_alpha_at(lo, ld, r["hit_idx"]) >= 1.0)
+            idx[live[accept]] = r["hit_idx"][accept]
+            tt[live[accept]] = off[live[accept]] + r["t"][accept]
+            vis[live] += r["visits"]
+            # restart transparent rays just past the rejected hit: too
+            # small an advance re-hits the same triangle (at t below the
+            # 1e-6 cutoff, so harmless), too large skips opaque geometry
+            # nearly coincident with the cutout
+            adv = r["t"] * (1.0 + 1e-5) + 1e-5
+            transparent = hit & ~accept
+            moved = live[transparent]
+            cur_o[moved] = lo[transparent] \
+                + ld[transparent] * adv[transparent][:, None]
+            off[moved] = off[moved] + adv[transparent]
+            live = moved
+        return {"hit_idx": idx, "t": tt, "visits": vis}
 
     def anyhit(o, d):
-        return traverse_cluster_sweep(cb, o, d, anyhit=True)["hit_idx"] >= 0
+        return closest(o, d)["hit_idx"] >= 0
 
-    if settings.ray_sort in ("auto", "on"):
+    return closest, anyhit
+
+
+def _make_tracers(scene, settings: RenderSettings):
+    """Pick the traversal backend from the scene and settings.traversal:
+
+    - brute: forced, or `auto` on a cluster scene of at most
+      brute_max_tris padded triangles;
+    - sweep: forced, or `auto` otherwise (the CUDA kernel on a card, its
+      twin on the CPU); the closest-hit tracer emits the shading
+      attributes when settings.shade_fetch == "kernel";
+    - cluster: the lockstep walk of the base threading;
+    - gather, or a scene without cluster tables: the scene-BVH walk,
+      which applies alpha_test itself.
+
+    Sweep rays are sorted (ray_sort "auto" or "on"; the others only with
+    "on"). alpha_test on a cluster path re-traces past transparent hits.
+    Both tracers detach their rays and run under no_grad."""
+    cb = scene.cluster
+    trav = settings.traversal
+    if trav in ("cluster", "brute", "sweep") and cb is None:
+        raise ValueError(f"settings.traversal={trav!r} but the scene was "
+                         "built without cluster tables (cluster_k=None)")
+    use_cluster = cb is not None and trav != "gather"
+    use_brute = use_cluster and (
+        trav == "brute" or (trav == "auto" and cb.n_clusters * cb.k
+                            <= settings.brute_max_tris))
+    use_sweep = use_cluster and not use_brute and trav in ("auto", "sweep")
+    emit = settings.shade_fetch == "kernel"
+    if emit and not use_sweep:
+        raise ValueError("shade_fetch='kernel' requires the sweep "
+                         "traversal backend")
+    if use_brute:
+        def closest(o, d):
+            return traverse_brute(cb, o, d)
+
+        def anyhit(o, d):
+            return traverse_brute(cb, o, d, anyhit=True)["hit_idx"] >= 0
+    elif use_sweep:
+        def closest(o, d):
+            return traverse_cluster_sweep(cb, o, d, emit_attrs=emit)
+
+        def anyhit(o, d):
+            return traverse_cluster_sweep(cb, o, d,
+                                          anyhit=True)["hit_idx"] >= 0
+    elif use_cluster:
+        def closest(o, d):
+            return traverse_cluster(cb, o, d)
+
+        def anyhit(o, d):
+            return traverse_cluster(cb, o, d, anyhit=True)["hit_idx"] >= 0
+    else:
+        def closest(o, d):
+            return traverse_closest(scene, o, d,
+                                    alpha_test=settings.alpha_test)
+
+        def anyhit(o, d):
+            return traverse_anyhit(scene, o, d,
+                                   alpha_test=settings.alpha_test)
+
+    if settings.ray_sort == "on" or (settings.ray_sort == "auto"
+                                     and use_sweep):
         closest, anyhit = _sorted_tracers(scene, closest, anyhit)
+    if use_cluster and settings.alpha_test:
+        closest, anyhit = _alpha_retrace_tracers(
+            scene, closest, rounds=settings.alpha_rounds)
 
     def _no_grad_in(f):  # the JAX package's _sg_in
         def g(o, d):

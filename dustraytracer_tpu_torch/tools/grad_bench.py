@@ -53,15 +53,20 @@ GRAD_PARAMS = ("mat_albedo", "mat_emissive", *LIGHT_KEYS, "position",
                "tri_pos")
 FETCHES = ("kernel", "gather")
 SMOKE_SPHERE = (128, 64)
+SMALL_SPHERE = (16, 8)  # 226 triangles: `auto` traverses it by brute force
 # below, inside and above the 12,288-16,384 band of shade_fetch="auto"
 SPHERES = ((64, 32), (96, 48), SMOKE_SPHERE, (192, 96), (256, 128))
 REPS = 9
 
 
-def sphere_doc(n_lon: int = 128, n_lat: int = 64, seed: int = 0):
+def sphere_doc(n_lon: int = 128, n_lat: int = 64, seed: int = 0,
+               cutout: bool = False):
     """A displaced lat-long sphere (2·n_lon·(n_lat - 1) triangles: 16,128
     at 128x64) on a checker-textured ground quad, two materials, one
-    256x256 u8 image; all from `seed`."""
+    256x256 u8 image; all from `seed`. With `cutout`, a 2-triangle quad
+    with a checker alpha texture (texels of alpha 0 and 255, 8x8 cells
+    of 64x64) stands between the bench pose's camera and the sphere: a
+    third material and a second image."""
     rng = np.random.default_rng(seed)
     lat = np.linspace(0.0, np.pi, n_lat + 1)[:, None]
     lon = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)[None, :]
@@ -112,8 +117,28 @@ def sphere_doc(n_lon: int = 128, n_lat: int = 64, seed: int = 0):
                          base_color=np.float32([0.5, 0.2, 0.15])),
             GltfMaterial(name="ground", base_color=np.float32([1, 1, 1]),
                          base_color_texture=0)]
-    return GltfDocument(meshes=[("sphere", [sphere]), ("ground", [ground])],
-                        materials=mats, images=[img], cameras=[])
+    meshes = [("sphere", [sphere]), ("ground", [ground])]
+    images = [img]
+    if cutout:
+        c = np.float32([[-0.8, 0.3, 2.2], [0.8, 0.3, 2.2], [0.8, 1.9, 2.2],
+                        [-0.8, 1.9, 2.2]])
+        cuv = np.float32([[0, 0], [1, 0], [1, 1], [0, 1]])
+        quad = [[0, 1, 2], [0, 2, 3]]
+        meshes.append(("cutout", [GltfPrimitive(
+            positions=c[quad], uvs=cuv[quad],
+            normals=np.broadcast_to(np.float32([0, 0, 1]), (2, 3, 3)).copy(),
+            material=2)]))
+        yy, xx = np.mgrid[0:64, 0:64]
+        cells = (yy // 8 + xx // 8) % 2
+        cut = np.empty((64, 64, 4), np.uint8)
+        cut[..., :3] = np.uint8([200, 180, 60])
+        cut[..., 3] = np.where(cells, 255, 0)
+        images.append(cut)
+        mats.append(GltfMaterial(name="cutout",
+                                 base_color=np.float32([1, 1, 1]),
+                                 base_color_texture=1))
+    return GltfDocument(meshes=meshes, materials=mats, images=images,
+                        cameras=[])
 
 
 def grad_step(scene, camera, lights, settings, width: int, height: int, *,
@@ -165,6 +190,31 @@ def median_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def device_ms(fn, name: str | None = None, reps: int = 5) -> float:
+    """Device time per call of fn(): the summed duration of the CUDA
+    kernels it launched (those whose name contains `name`, if given)
+    under torch.profiler, over `reps` calls after one warm-up. Unlike
+    CUDA events around one call, it does not count host time the device
+    spends waiting for the launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if getattr(e, "device_type", None) == DeviceType.CUDA
+          and (name is None or name in e.name)]
+    if not us:
+        raise RuntimeError(f"the profiler saw no device kernel "
+                           f"{name or ''} in fn()")
+    return sum(us) / reps / 1e3
 
 
 def _settings() -> RenderSettings:

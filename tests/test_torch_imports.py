@@ -30,6 +30,13 @@ def test_port_imports_without_jax():
         "import dustraytracer_tpu_torch.interop\n"
         "import dustraytracer_tpu_torch.utils.image\n"
         "import dustraytracer_tpu_torch.tools.grad_bench\n"
+        "import dustraytracer_tpu_torch.tools.repro_cache_hang\n"
+        "import dustraytracer_tpu_torch.ops.traverse\n"
+        "import dustraytracer_tpu_torch.ops.traverse_brute\n"
+        "import dustraytracer_tpu_torch.ops.traverse_cluster\n"
+        "import dustraytracer_tpu_torch.ops.traverse_pallas\n"
+        "import dustraytracer_tpu_torch.utils.roofline\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dustraytracer_tpu' or m.startswith('dustraytracer_tpu.')]"
         "\nassert not bad, bad\n"

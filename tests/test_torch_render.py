@@ -101,14 +101,36 @@ def test_save_png_pixels(tmp_path):
                                   [::-1])
 
 
+# every traversal backend and alpha_test, against the JAX package with
+# the same settings (tests/test_torch_alpha.py renders real cutouts)
+BACKENDS = {
+    "alpha_test": dict(alpha_test=True),
+    "brute": dict(traversal="brute"),
+    "gather": dict(traversal="gather"),
+    "auto_small": dict(brute_max_tris=4096),  # auto picks brute
+    "cluster": dict(traversal="cluster"),
+    "sweep": dict(traversal="sweep"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BACKENDS))
+def test_render_backend_matches_jax(scenes, name):
+    js, ts = scenes
+    settings = RenderSettings(bounces=3, **BACKENDS[name])
+    jset = JSettings(bounces=3, **BACKENDS[name])
+    t_img = render_sample(ts, make_camera(**POSE),
+                          LightParams.from_settings(settings), 0,
+                          width=W, height=H, settings=settings)
+    j_img = j_render(js, j_camera(**POSE), JLights.from_settings(jset),
+                     jnp.uint32(0), width=W, height=H, settings=jset)
+    _compare(t_img.numpy(), j_img)
+    assert 0.05 < float(t_img.mean()) < 1.2
+
+
 NOT_PORTED = {
     "debug": dict(render_mode=RenderMode.DEBUG),
     "pbr": dict(shading="pbr"),
     "soft_edges": dict(soft_edges=0.05),
-    "alpha_test": dict(alpha_test=True),
-    "brute": dict(traversal="brute"),
-    "gather": dict(traversal="gather"),
-    "auto_small": dict(brute_max_tris=4096),  # auto would pick brute
 }
 
 
