@@ -8,7 +8,8 @@ scene the size of a dense bundled scene, generated from a seed:
 
   0. card      nvidia-smi name and power limit; fails without CUDA
   1. build     nvcc builds of csrc/traverse_sweep.cu, traverse_pallas.cu
-               and add_salt.cu for sm_90a, started together; ptxas lines
+               and add_salt.cu for sm_90a, started together; ptxas lines,
+               and each sweep instance's registers (none may spill)
   2. scene     a displaced lat-long sphere (128 x 64 segments) over a
                textured ground (tools/grad_bench.py::sphere_doc), built
                by the port's build_scene; also its 16 x 8 variant (226
@@ -26,7 +27,13 @@ scene the size of a dense bundled scene, generated from a seed:
                and visits identical to the plain kernel's, exec_windows,
                exec_leafs and leaf_tests equal to the twin's; median times
                of both modes and the twin, the work the rays need
-               (utils/roofline.py), the bound and the roofline share
+               (utils/roofline.py), the bound and the roofline share;
+               resident blocks per SM of each sweep instance
+  3t. ties/K   all three sweep instances against the twin, bit for bit,
+               on a seeded 2,048-triangle soup at K = 8, 16, 32 and 64,
+               with duplicated triangles under new ids so that rays see
+               exact t ties inside one cluster (the lowest id must win)
+               and across two clusters; counts the tied rays (none fails)
   3p. pallas   the base-threading kernel (the TPU one-hot kernel's port) on
                the same waves: hit ids equal and t bit for bit with its
                twin, visits zero; hit ids equal to the sweep kernel's but
@@ -109,6 +116,18 @@ TWIN_REPS = 3        # the plain-PyTorch walks take 0.1-0.5 s per wave
 SWEEP_KERNEL = "traverse_sweep_kernel"  # the device kernels' name stem
 KERNELS = ("traverse_sweep", "traverse_sweep[emit_attrs]",
            "traverse_sweep[counters]", "traverse_pallas", "add_salt")
+SWEEP_MODES = {"traverse_sweep": "plain",  # K1's rows -> instances
+               "traverse_sweep[emit_attrs]": "emit_attrs",
+               "traverse_sweep[counters]": "counters"}
+# the instances' template arguments in the mangled kernel names
+INSTANCE_OF = {"ILb0ELb0E": "plain", "ILb1ELb0E": "emit_attrs",
+               "ILb0ELb1E": "counters"}
+TIE_KS = (8, 16, 32, 64)
+TIE_CALLS = {"plain": {}, "anyhit": {"anyhit": True},  # keyword arguments
+             "emit_attrs": {"emit_attrs": True},
+             "counters": {"counters": True}}
+TIE_TRIS = 2048
+TIE_RAYS = 32768
 
 
 def check(cond: bool, msg: str) -> None:
@@ -173,6 +192,67 @@ def write_glb(path: Path, doc) -> None:
                      + struct.pack("<II", len(blob), 0x004E4942) + blob)
 
 
+def sweep_registers(log: str) -> dict:
+    """Registers and spill bytes of each sweep kernel instance, from the
+    ptxas -v lines of its build log."""
+    regs, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = next((m for key, m in INSTANCE_OF.items()
+                          if SWEEP_KERNEL + key in ln), None)
+        elif entry and "spill stores" in ln:
+            words = ln.replace(",", " ").split()
+            regs.setdefault(entry, {})["spill_bytes"] = (
+                int(words[words.index("spill") - 2])
+                + int(words[words.index("loads") - 3]))
+        elif entry and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            regs.setdefault(entry, {})["registers"] = int(
+                words[words.index("registers") - 1])
+    return regs
+
+
+def tie_soup(k: int, seed: int = 5):
+    """A seeded soup of TIE_TRIS triangles (test_torch_sweep_ties.py's
+    shape: centres uniform in [-5, 5]^3, corners N(0, 0.3) around them),
+    sorted by a 8^3 grid cell so that clusters of K consecutive triangles
+    are compact, and with duplicates under new ids: in every second
+    cluster c, slot K-1 repeats slot 3 (a tie inside one cluster) and
+    slot K-2 repeats slot 4 of cluster c+1 (a tie across two clusters).
+    Returns positions (N, 3, 3) and the pairs (low id, high id) of each
+    kind."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-5, 5, (TIE_TRIS, 1, 3))
+    pos = (centers + rng.normal(0, 0.3, (TIE_TRIS, 3, 3))).astype(np.float32)
+    cell = np.clip(((pos.mean(axis=1) + 5.0) / 1.25).astype(np.int64), 0, 7)
+    pos = pos[np.argsort(cell @ np.array([64, 8, 1]), kind="stable")]
+    inside, across = [], []
+    for c in range(0, TIE_TRIS // k - 1, 2):
+        base = c * k
+        pos[base + k - 1] = pos[base + 3]
+        inside.append((base + 3, base + k - 1))
+        pos[base + k - 2] = pos[base + k + 4]
+        across.append((base + k - 2, base + k + 4))
+    return pos, np.array(inside), np.array(across)
+
+
+def tie_rays(pos, pairs, seed: int = 6):
+    """TIE_RAYS rays from uniform origins in [-12, 12]^3 toward points
+    inside triangles: half toward the tied pairs' triangles, half toward
+    any triangle."""
+    rng = np.random.default_rng(seed)
+    half = TIE_RAYS // 2
+    tri = np.concatenate([pairs[rng.integers(0, len(pairs), half), 0],
+                          rng.integers(0, len(pos), TIE_RAYS - half)])
+    a, b = (rng.uniform(0.1, 0.45, TIE_RAYS)[:, None] for _ in range(2))
+    v0, v1, v2 = pos[tri, 0], pos[tri, 1], pos[tri, 2]
+    target = v0 + a * (v1 - v0) + b * (v2 - v0)
+    o = rng.uniform(-12, 12, (TIE_RAYS, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
 def reset_launches() -> None:
     from dustraytracer_tpu_torch.ops import traverse_pallas as tp
     from dustraytracer_tpu_torch.ops import traverse_sweep as ts
@@ -212,21 +292,20 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from dustraytracer_tpu_torch.accel.cluster import build_cluster_bvh
     from dustraytracer_tpu_torch.ops import traverse_pallas as tp
     from dustraytracer_tpu_torch.ops import traverse_sweep as ts
     from dustraytracer_tpu_torch.ops.cuda_build import ARCH, load_library
-    from dustraytracer_tpu_torch.ops.rng import seed_pixels
     from dustraytracer_tpu_torch.render.film import (film_image,
                                                      render_progressive)
     from dustraytracer_tpu_torch.render.integrator import (_resolve_fetch,
-                                                           render_sample,
-                                                           ray_sort_key)
-    from dustraytracer_tpu_torch.scene.camera import (generate_rays,
-                                                      make_camera)
+                                                           render_sample)
+    from dustraytracer_tpu_torch.scene.camera import make_camera
     from dustraytracer_tpu_torch.scene.scene import build_scene
     from dustraytracer_tpu_torch.scene.settings import (LightParams,
                                                         RenderSettings)
     from dustraytracer_tpu_torch.tools import repro_cache_hang
+    from dustraytracer_tpu_torch.tools.ab_main_paths import sweep_waves
     from dustraytracer_tpu_torch.tools.grad_bench import (GRAD_PARAMS, POSE,
                                                           SMALL_SPHERE,
                                                           device_ms,
@@ -262,6 +341,12 @@ def main() -> int:
              built=rec["built"], arch=ARCH,
              flags=rec["log"].splitlines()[0] if rec["log"] else "",
              ptxas=ptxas, all_builds_seconds=nvcc_s)
+    sweep_regs = sweep_registers(recs["traverse_sweep"]["log"])
+    check(sorted(sweep_regs) == sorted(SWEEP_MODES.values()),
+          f"ptxas lines for the sweep instances: {sweep_regs}")
+    for inst, reg in sweep_regs.items():
+        check(reg.get("spill_bytes") == 0, f"sweep {inst} spills: {reg}")
+    emit("build", source="csrc/traverse_sweep.cu", instances=sweep_regs)
 
     # 2. scene
     t0 = time.perf_counter()
@@ -284,33 +369,8 @@ def main() -> int:
     settings = RenderSettings(bounces=BOUNCES)
     lights = LightParams.from_settings(settings, device=dev)
     camera = make_camera(**POSE, device=dev)
-    ids = torch.arange(WIDTH * HEIGHT, device=dev)
-    _, o, d = generate_rays(camera, WIDTH, HEIGHT, seed_pixels(ids, 0),
-                            pixel_ids=ids)
-    lo, hi = scene.node_min[0], scene.node_max[0]
-
-    def sort(o, d):
-        perm = torch.argsort(ray_sort_key(lo, hi, o, d), stable=True)
-        return o[perm].contiguous(), d[perm].contiguous()
-
-    o, d = sort(o, d)
-    rng = np.random.default_rng(1)
-    n = o.shape[0]
-    prim = ts.traverse_cluster_sweep(cb, o, d)
-    hit = prim["hit_idx"] >= 0
-    t_hit = torch.where(hit, prim["t"], 0.0)
-    hit_pt = o + d * (t_hit * 0.999)[:, None]
-    bd = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
-    bd = bd / torch.linalg.vector_norm(bd, dim=-1, keepdim=True)
-    parked = torch.from_numpy(rng.uniform(size=n) < 0.1).to(dev)
-    bo, bd = sort(torch.where(parked[:, None], 3.0e37, hit_pt), bd)
-    jit = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
-    jit = jit / torch.linalg.vector_norm(jit, dim=-1, keepdim=True)
-    sd = (lights.sun_position()[None, :] + jit * 1.5).contiguous()
-    so, sd = sort(torch.where(hit[:, None], hit_pt, 3.0e37), sd)
-
-    waves = {"primary": (o, d, False), "bounce": (bo, bd, False),
-             "shadow_anyhit": (so, sd, True)}
+    waves = sweep_waves(scene, camera, lights, WIDTH)
+    n = WIDTH * HEIGHT
     results, max_err, plain_out = {}, 0.0, {}
     for wave, (wo, wd, ah) in waves.items():
         rk = ts.traverse_cluster_sweep(cb, wo, wd, anyhit=ah)
@@ -396,6 +456,12 @@ def main() -> int:
           f"{launches['kernel_counters']}")
     nodes_t, tris_t = ts.device_tables(cb)
     sweep_tables = nbytes(nodes_t, tris_t)
+    occ = ts.occupancy()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(all(b > 0 for b in occ.values()), f"occupancy {occ}")
+    emit("kernel_counters", resident_blocks_per_sm=occ, sms=sms,
+         threads_per_block=128,
+         resident_warps_per_sm={k: 4 * b for k, b in occ.items()})
     work, count_res, count_err = {}, {}, 0.0
     for wave, (wo, wd, ah) in waves.items():
         rc, rp = counted[wave], plain_out[wave]
@@ -429,6 +495,59 @@ def main() -> int:
                            "roofline_share": bound_s * 1e3 / c_ms}
         emit("kernel_counters", wave=wave, anyhit=ah, **count_res[wave],
              **work[wave])
+
+    # 3t. K1's three instances against the twin at other K and on ties
+    tie_ms = {inst: {} for inst in SWEEP_MODES.values()}
+    tie_total = 0
+    for k in TIE_KS:
+        pos, inside, across = tie_soup(k)
+        trng = np.random.default_rng(100 + k)
+        nt = pos.shape[0]
+        fn = trng.normal(size=(nt, 3)).astype(np.float32)
+        fn /= np.linalg.norm(fn, axis=-1, keepdims=True)
+        tcb = build_cluster_bvh(
+            pos, k=k, uv=trng.uniform(0, 1, (nt, 3, 2)).astype(np.float32),
+            face_nrm=fn, mat=trng.integers(0, 4, nt).astype(np.int32)
+        ).to(dev)
+        to, td = (torch.from_numpy(x).to(dev)
+                  for x in tie_rays(pos, np.concatenate([inside, across])))
+        outs = {}
+        for mode, kw in TIE_CALLS.items():
+            rk = ts.traverse_cluster_sweep(tcb, to, td, **kw)
+            rt = ts.traverse_cluster_sweep_reference(tcb, to, td, **kw)
+            torch.cuda.synchronize()
+            check(rk.keys() == rt.keys(), f"ties K={k} {mode}: keys")
+            for key in rk:
+                check(torch.equal(rk[key], rt[key]),
+                      f"ties K={k} {mode}: {key} differs from the twin in "
+                      f"{int((rk[key] != rt[key]).sum())} entries")
+            outs[mode] = rk
+            if mode != "anyhit":
+                tie_ms[mode][str(k)] = device_ms(
+                    lambda: ts.traverse_cluster_sweep(tcb, to, td, **kw),
+                    SWEEP_KERNEL)
+        hit = outs["plain"]["hit_idx"].cpu().numpy()
+        ins = np.isin(hit, inside)
+        acr = np.isin(hit, across)
+        # a ray whose closest hit is one of a pair inside one cluster
+        # must take its lower id
+        check(bool(np.isin(hit[ins], inside[:, 0]).all()),
+              f"ties K={k}: {int((~np.isin(hit[ins], inside[:, 0])).sum())}"
+              " rays tied inside a cluster took the higher id")
+        for key in ("hit_idx", "t", "visits"):
+            check(torch.equal(outs["emit_attrs"][key], outs["plain"][key])
+                  and torch.equal(outs["counters"][key], outs["plain"][key]),
+                  f"ties K={k}: {key} changes with the instance")
+        tied = {"inside_cluster": int(ins.sum()),
+                "across_clusters": int(acr.sum())}
+        check(min(tied.values()) > 0, f"ties K={k}: tied rays {tied}")
+        tie_total += sum(tied.values())
+        emit("kernel_ties_and_k", k=k, triangles=nt, clusters=tcb.n_clusters,
+             rays=TIE_RAYS, hits=int((hit >= 0).sum()), tied_rays=tied,
+             anyhit_hits=int((outs["anyhit"]["hit_idx"] >= 0).sum()),
+             kernel_ms={m: tie_ms[m][str(k)] for m in tie_ms})
+    check(tie_total > 0, "no tied ray exercised")
+    emit("kernel_ties_and_k", tied_rays_total=tie_total)
 
     # 3p. K2: its path is traverse_cluster_pallas on each wave
     reset_launches()
@@ -812,6 +931,14 @@ def main() -> int:
          "max_abs_err": a_kid["max_abs_err"], "ms": a_kid["ms"],
          "plain_ms": a_kid["plain_ms"], "bound_ms": salt_bound * 1e3,
          "bound_by": salt_by, "library_ms": a_kid["plain_ms"]}]
+    by_wave = {
+        "plain": {w: r["kernel_ms"] for w, r in results.items()},
+        "emit_attrs": {w: r["kernel_emit_ms"] for w, r in emit_res.items()},
+        "counters": {w: r["kernel_count_ms"] for w, r in count_res.items()}}
+    for row in rows[:3]:
+        inst = SWEEP_MODES[row["name"]]
+        row.update(ms_by_wave=by_wave[inst], blocks_per_sm=occ[inst],
+                   **sweep_regs[inst], tie_soup_ms_by_k=tie_ms[inst])
     for row in rows:
         kernel = row["name"]
         count = launches[main[kernel]].get(kernel, 0)

@@ -13,20 +13,49 @@
 //
 // It does not copy the TPU kernel's schedule (uniform scalar cursor over a
 // ray tile, UNROLL windows, SMEM paging, one-hot leaf matvec, planar
-// tables). Here one thread walks one ray with its own node pointer, and
-// each ray walks the near-child-first threading of its OWN direction
-// octant (bit2 = x<0, bit1 = y<0, bit0 = z<0); the TPU kernel takes the
-// octant of a tile's first ray. Any threading gives the same hit_idx and
-// t; visits follow the octant, so they are compared with the PyTorch twin
-// (same per-ray rule), not with the TPU kernel.
+// tables). Each ray walks the near-child-first threading of its OWN
+// direction octant (bit2 = x<0, bit1 = y<0, bit0 = z<0); the TPU kernel
+// takes the octant of a tile's first ray. Any threading gives the same
+// hit_idx and t but for exact-t ties across clusters; visits follow the
+// octant, so they are compared with the PyTorch twin (same per-ray
+// rule), not with the TPU kernel.
 //
-// What bounds it: a leaf is 32 Möller–Trumbore tests of about 50 FP32
-// operations each, and the node and triangle tables (tens of KB to a few
-// MB) stay resident in L1/L2, so the kernel is bound by latency and warp
-// divergence, not by memory bandwidth. The design answers that with
-// 16-byte loads through the read-only path (__ldg): a node is two float4
-// (min.xyz | skip, max.xyz | cluster), octant-major (8, M); a triangle is
-// three float4 (v0.xyz | id, e1.xyz | 0, e2.xyz | 0), cluster-major.
+// What bounds it on this card: the work is FP32 operations (26 per slab
+// test, 57 per triangle test, utils/roofline.py) on node and triangle
+// tables that stay in L1/L2, so bandwidth is not the limit; issue slots
+// and dependent-load latency are. A walk step is one slab test on a
+// node that depends on the previous step; a leaf is K triangle tests. If
+// each thread tested its own leaf's K triangles, the warp's other lanes
+// would sit masked through 32 serial tests (17-32% of those lane slots
+// were useful on the card) and the 32 lanes' reads would go to 32
+// clusters. The design:
+//
+// - One warp-uniform loop (while (__any_sync(live))): iteration s is one
+//   step of every live lane, slab test then descend or skip, as step s
+//   of the twin's lockstep loop. Lanes past n and lanes whose walk ended
+//   stay in the loop, inactive, so every vote and shuffle has 32 lanes.
+// - The warp-cooperative leaf test: __ballot_sync collects the lanes
+//   whose step entered a leaf, and the warp serves them one at a time,
+//   lowest lane first. The served lane's ray, t and cluster go to every
+//   lane by __shfl_sync; lane j tests slot j (j + 32, ... for K > 32),
+//   three float4 of one coalesced 1.5 KB cluster row; lanes j >= K idle.
+//   The warp's best is the minimum of (t, id): __reduce_min_sync over
+//   the t bits (all candidate t are positive, so their bit patterns order
+//   as the floats do), then over the ids of the lanes holding that t.
+//   Slots that fail `valid` carry (3.4e38, 2^30). The test compares with
+//   the served ray's t before the leaf, so the outcome does not depend on
+//   the order of the slots: it is the twin's.
+// - The next served lane's cluster row is loaded before the current one
+//   is tested and reduced, so its latency overlaps that work.
+// - A persistent schedule: as many blocks as fit on the card at once
+//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs); each warp takes
+//   the next batch of 32 consecutive rays from a counter the caller
+//   zeroes, until none is left, so the long rays of the wave's tail do
+//   not wait for a new round of blocks.
+//
+// A node is two float4 (min.xyz | skip, max.xyz | cluster), octant-major
+// (8, M); a triangle is three float4 (v0.xyz | id, e1.xyz | 0,
+// e2.xyz | 0), cluster-major; both read through the read-only path.
 //
 // Built with -fmad=false so that each operation rounds as in the PyTorch
 // twin (ops/traverse_sweep.py traverse_cluster_sweep_reference), whose
@@ -34,27 +63,21 @@
 // det = e1x*px + e1y*py + e1z*pz, left to right.
 //
 // Emit mode (the TPU kernel's `attrs`, traverse_sweep.py:347-379): the
-// in-kernel shading fetch. The TPU body selects the winner's u, v, uv,
-// face normal and material with a masked K-reduce at every executed
-// leaf; here a thread keeps the winning slot's (cluster, slot, u, v) as
-// the Möller–Trumbore test that committed it computed them, and after
-// the walk reads that slot's row of the attribute table once (three
-// float4: [uv0.xy uv1.xy] [uv2.xy fn.xy] [fn.z mat 0 0]) and writes
-// uv = (1-u-v)*uv0 + u*uv1 + v*uv2, face_nrm and mat; misses get zeros.
-// It is a template instance of the same kernel, so hit_idx, t and
-// visits do not depend on the mode.
+// in-kernel shading fetch. A commit also takes the winning slot and its
+// u, v from the lane that tested it; after the walk each ray reads that
+// slot's row of the attribute table once (three float4: [uv0.xy uv1.xy]
+// [uv2.xy fn.xy] [fn.z mat 0 0]) and writes uv = (1-u-v)*uv0 + u*uv1 +
+// v*uv2, face_nrm and mat; misses get zeros.
 //
 // Count mode (the TPU kernel's per-tile executed-work counters
 // exec_windows / exec_leafs, traverse_sweep.py:141-142, :392-397): the
 // lockstep unit on this card is a warp of 32 consecutive rays, not a TPU
-// tile. A third template instance runs the same walk in a warp-uniform
-// loop (while (__any_sync(live))) so that a warp's iterations can be
-// counted: exec_windows[w] = loop iterations warp w executed (= max
-// visits over its lanes), exec_leafs[w] = iterations in which
-// __ballot_sync found at least one lane running the K-wide leaf test,
-// and leaf_tests[r] = leaves ray r tested. Lanes past n of the last
-// warp stay in the loop, inactive, so the warp votes stay full. The
-// plain and emit instances keep their per-thread loop and early return.
+// tile. exec_windows[w] = loop iterations warp w executed (= max visits
+// over its lanes), exec_leafs[w] = iterations in which at least one lane
+// entered a leaf, leaf_tests[r] = leaves ray r tested.
+//
+// The three modes are template instances of one kernel, so hit_idx, t
+// and visits do not depend on the mode.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,6 +88,8 @@ constexpr float kBig = 3.4e38f;
 constexpr int kNoId = 1 << 30;
 constexpr float kEps = 1e-6f;
 constexpr int kBlock = 128;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 // torch.maximum / torch.minimum: a NaN operand gives NaN
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -89,167 +114,232 @@ struct CountOut {
   int* leaf_tests;    // (n,)
 };
 
-// One ray's walk state and its step: stand on node i, slab-test it,
-// descend or skip, and at an entered leaf test its K triangles. Returns
-// whether this step ran the leaf test.
-template <bool kEmit>
-struct Walk {
-  float ox, oy, oz, dx, dy, dz, inv_x, inv_y, inv_z;
-  const float4* tab;
-  const float4* tris;
-  int k, anyhit;
-  float hit_t;
-  int hit_idx = -1;
-  int visits = 0;
+struct Params {
+  const float* origin;     // (n, 3)
+  const float* direction;  // (n, 3)
+  const float* t_max;      // (n,)
+  int n;
+  const float4* nodes;  // (8, m, 2) float4
+  int m;
+  const float4* tris;  // (C, k, 3) float4
+  int k;
+  int anyhit;
+  int* hit_out;
+  float* t_out;
+  int* visits_out;
+  EmitOut emit;
+  CountOut count;
+  int* next_batch;  // zeroed by the caller
+};
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// Slot j of cluster c: three float4. A slot past k reads nothing and
+// gets id -1, which `valid` rejects.
+__device__ __forceinline__ void load_slot(const float4* tris, int c, int k,
+                                          int j, float4& a, float4& b,
+                                          float4& e) {
+  if (j < k) {
+    const float4* row = tris + ((size_t)c * k + j) * 3;
+    a = __ldg(row + 0);
+    b = __ldg(row + 1);
+    e = __ldg(row + 2);
+  } else {
+    a = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(-1));
+    b = e = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// Möller–Trumbore of ray s against the triangle (v0 | id, e1, e2) in the
+// twin's operation order; whether the slot may win against cur_t.
+__device__ __forceinline__ bool tri_test(const float4 a, const float4 b,
+                                         const float4 c, const Ray& s,
+                                         float cur_t, float& tt, float& u,
+                                         float& v) {
+  const int tri_id = __float_as_int(a.w);
+  const float px = s.dy * c.z - s.dz * c.y;
+  const float py = s.dz * c.x - s.dx * c.z;
+  const float pz = s.dx * c.y - s.dy * c.x;
+  const float det = b.x * px + b.y * py + b.z * pz;
+  const bool par = fabsf(det) < kEps;
+  const float inv_det = 1.0f / (par ? 1.0f : det);
+  const float tvx = s.ox - a.x;
+  const float tvy = s.oy - a.y;
+  const float tvz = s.oz - a.z;
+  u = inv_det * (tvx * px + tvy * py + tvz * pz);
+  const float qx = tvy * b.z - tvz * b.y;
+  const float qy = tvz * b.x - tvx * b.z;
+  const float qz = tvx * b.y - tvy * b.x;
+  v = inv_det * (s.dx * qx + s.dy * qy + s.dz * qz);
+  tt = inv_det * (c.x * qx + c.y * qy + c.z * qz);
+  return !par && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
+         tt > kEps && tri_id >= 0 && tt < cur_t;
+}
+
+// The rays batch * 32 + lane of one warp, walked to the end.
+template <bool kEmit, bool kCount>
+__device__ __forceinline__ void trace_batch(const Params& p, int batch,
+                                            int lane) {
+  const int r = batch * kWarp + lane;
+  Ray ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float inv_x = 0.0f, inv_y = 0.0f, inv_z = 0.0f, hit_t = 0.0f;
+  const float4* tab = p.nodes;
+  int i = -1;  // the node a lane stands on; -1: no walk (done or past n)
+  if (r < p.n) {
+    ray.ox = __ldg(p.origin + 3 * r + 0);
+    ray.oy = __ldg(p.origin + 3 * r + 1);
+    ray.oz = __ldg(p.origin + 3 * r + 2);
+    ray.dx = __ldg(p.direction + 3 * r + 0);
+    ray.dy = __ldg(p.direction + 3 * r + 1);
+    ray.dz = __ldg(p.direction + 3 * r + 2);
+    inv_x = 1.0f / ray.dx;
+    inv_y = 1.0f / ray.dy;
+    inv_z = 1.0f / ray.dz;
+    const int oct =
+        (ray.dx < 0.0f) * 4 + (ray.dy < 0.0f) * 2 + (ray.dz < 0.0f);
+    tab = p.nodes + (size_t)oct * p.m * 2;
+    hit_t = __ldg(p.t_max + r);
+    i = 0;
+  }
+  int hit_idx = -1, visits = 0;
   int win_c = 0, win_j = 0;  // emit mode: the committed hit's slot
   float win_u = 0.0f, win_v = 0.0f;
-  int i = 0;
+  int windows = 0, leafs = 0, tests = 0;
 
-  __device__ __forceinline__ bool step() {
-    const float4 lo = __ldg(tab + 2 * i);
-    const float4 hi = __ldg(tab + 2 * i + 1);
-    const int skip = __float_as_int(lo.w);
-    const int cluster = __float_as_int(hi.w);
-    ++visits;
+  // pre-order pointers only move forward, so a walk ends within m steps;
+  // the bound only guards against a malformed table
+  for (int step = 0;; ++step) {
+    const bool live = i >= 0 && step < p.m + 4;
+    if (!__any_sync(kFull, live)) break;
+    int next = i, cluster = -1;
+    bool leaf = false;
+    if (live) {
+      const float4 lo = __ldg(tab + 2 * i);
+      const float4 hi = __ldg(tab + 2 * i + 1);
+      const int skip = __float_as_int(lo.w);
+      cluster = __float_as_int(hi.w);
+      ++visits;
+      const float tx0 = (lo.x - ray.ox) * inv_x;
+      const float tx1 = (hi.x - ray.ox) * inv_x;
+      const float ty0 = (lo.y - ray.oy) * inv_y;
+      const float ty1 = (hi.y - ray.oy) * inv_y;
+      const float tz0 = (lo.z - ray.oz) * inv_z;
+      const float tz1 = (hi.z - ray.oz) * inv_z;
+      const float t_lo = max_nan(max_nan(fminf(tx0, tx1), fminf(ty0, ty1)),
+                                 fminf(tz0, tz1));
+      const float t_hi = min_nan(min_nan(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                                 fmaxf(tz0, tz1));
+      const float t_enter = max_nan(t_lo, 0.0f);
+      const bool enter =
+          (t_enter <= t_hi) && (t_hi >= 0.0f) && (t_enter < hit_t);
+      next = (enter && cluster < 0) ? i + 1 : skip;
+      leaf = enter && cluster >= 0;
+    }
+    unsigned pend = __ballot_sync(kFull, leaf);
+    if (kCount) {
+      ++windows;
+      leafs += pend != 0u;
+      tests += leaf;
+    }
+    if (pend != 0u) {
+      // serve the leaf lanes one at a time, lowest first; the row of the
+      // next one is in flight while the current one is tested
+      int s = __ffs(pend) - 1;
+      int c = __shfl_sync(kFull, cluster, s);
+      float4 a, b, e;
+      load_slot(p.tris, c, p.k, lane, a, b, e);
+      for (;;) {
+        const Ray sr{__shfl_sync(kFull, ray.ox, s),
+                     __shfl_sync(kFull, ray.oy, s),
+                     __shfl_sync(kFull, ray.oz, s),
+                     __shfl_sync(kFull, ray.dx, s),
+                     __shfl_sync(kFull, ray.dy, s),
+                     __shfl_sync(kFull, ray.dz, s)};
+        const float cur_t = __shfl_sync(kFull, hit_t, s);
+        pend &= pend - 1u;
+        const int s_next = pend != 0u ? __ffs(pend) - 1 : s;
+        const int c_next = __shfl_sync(kFull, cluster, s_next);
+        float4 na, nb, ne;
+        load_slot(p.tris, c_next, p.k, pend != 0u ? lane : p.k, na, nb, ne);
 
-    const float tx0 = (lo.x - ox) * inv_x;
-    const float tx1 = (hi.x - ox) * inv_x;
-    const float ty0 = (lo.y - oy) * inv_y;
-    const float ty1 = (hi.y - oy) * inv_y;
-    const float tz0 = (lo.z - oz) * inv_z;
-    const float tz1 = (hi.z - oz) * inv_z;
-    const float t_lo = max_nan(max_nan(fminf(tx0, tx1), fminf(ty0, ty1)),
-                               fminf(tz0, tz1));
-    const float t_hi = min_nan(min_nan(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                               fmaxf(tz0, tz1));
-    const float t_enter = max_nan(t_lo, 0.0f);
-    const bool enter = (t_enter <= t_hi) && (t_hi >= 0.0f) &&
-                       (t_enter < hit_t);
-
-    int next = skip;
-    if (enter && cluster < 0) {
-      next = i + 1;
-    } else if (enter) {
-      const float cur_t = hit_t;
-      float best_t = kBig;
-      int best_id = kNoId;
-      int best_j = 0;
-      float best_u = 0.0f, best_v = 0.0f;
-      const float4* ct = tris + (size_t)cluster * k * 3;
-      for (int j = 0; j < k; ++j) {
-        const float4 a = __ldg(ct + 3 * j + 0);
-        const float4 b = __ldg(ct + 3 * j + 1);
-        const float4 c = __ldg(ct + 3 * j + 2);
-        const int tri_id = __float_as_int(a.w);
-        const float px = dy * c.z - dz * c.y;
-        const float py = dz * c.x - dx * c.z;
-        const float pz = dx * c.y - dy * c.x;
-        const float det = b.x * px + b.y * py + b.z * pz;
-        const bool par = fabsf(det) < kEps;
-        const float inv_det = 1.0f / (par ? 1.0f : det);
-        const float tvx = ox - a.x;
-        const float tvy = oy - a.y;
-        const float tvz = oz - a.z;
-        const float u = inv_det * (tvx * px + tvy * py + tvz * pz);
-        const float qx = tvy * b.z - tvz * b.y;
-        const float qy = tvz * b.x - tvx * b.z;
-        const float qz = tvx * b.y - tvy * b.x;
-        const float v = inv_det * (dx * qx + dy * qy + dz * qz);
-        const float tt = inv_det * (c.x * qx + c.y * qy + c.z * qz);
-        const bool valid = !par && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                           u + v <= 1.0f && tt > kEps && tri_id >= 0 &&
-                           tt < cur_t;
-        if (valid && (tt < best_t || (tt == best_t && tri_id < best_id))) {
+        float best_t = kBig, tt, u, v;
+        int best_id = kNoId, best_j = 0;
+        float best_u = 0.0f, best_v = 0.0f;
+        if (tri_test(a, b, e, sr, cur_t, tt, u, v)) {
           best_t = tt;
-          best_id = tri_id;
-          if (kEmit) {
+          best_id = __float_as_int(a.w);
+          best_j = lane;
+          best_u = u;
+          best_v = v;
+        }
+        for (int j = lane + kWarp; j < p.k; j += kWarp) {  // K > 32
+          float4 xa, xb, xe;
+          load_slot(p.tris, c, p.k, j, xa, xb, xe);
+          const int id = __float_as_int(xa.w);
+          if (tri_test(xa, xb, xe, sr, cur_t, tt, u, v) &&
+              (tt < best_t || (tt == best_t && id < best_id))) {
+            best_t = tt;
+            best_id = id;
             best_j = j;
             best_u = u;
             best_v = v;
           }
         }
-      }
-      if (best_id < kNoId && best_t < cur_t) {
-        hit_t = best_t;
-        hit_idx = best_id;
-        if (kEmit) {
-          win_c = cluster;
-          win_j = best_j;
-          win_u = best_u;
-          win_v = best_v;
+        // the warp's minimum (t, id); every candidate t is > 0
+        const unsigned t_bits = __float_as_uint(best_t);
+        const unsigned min_t = __reduce_min_sync(kFull, t_bits);
+        const unsigned min_id = __reduce_min_sync(
+            kFull, t_bits == min_t ? (unsigned)best_id : (unsigned)kNoId);
+        const float win_t = __uint_as_float(min_t);
+        if (min_id < (unsigned)kNoId && win_t < cur_t) {  // warp-uniform
+          if (kEmit) {  // ids are unique: one lane holds the winner
+            const int w = __ffs(__ballot_sync(
+                              kFull, t_bits == min_t &&
+                                         (unsigned)best_id == min_id)) -
+                          1;
+            const int wj = __shfl_sync(kFull, best_j, w);
+            const float wu = __shfl_sync(kFull, best_u, w);
+            const float wv = __shfl_sync(kFull, best_v, w);
+            if (lane == s) {
+              win_c = c;
+              win_j = wj;
+              win_u = wu;
+              win_v = wv;
+            }
+          }
+          if (lane == s) {
+            hit_t = win_t;
+            hit_idx = (int)min_id;
+            if (p.anyhit) next = -1;
+          }
         }
-        if (anyhit) next = -1;
+        if (pend == 0u) break;
+        s = s_next;
+        c = c_next;
+        a = na;
+        b = nb;
+        e = ne;
       }
     }
     i = next;
-    return enter && cluster >= 0;
   }
-};
 
-template <bool kEmit, bool kCount>
-__global__ void __launch_bounds__(kBlock)
-traverse_sweep_kernel(const float* __restrict__ origin,
-                      const float* __restrict__ direction,
-                      const float* __restrict__ t_max, int n,
-                      const float4* __restrict__ nodes, int m,
-                      const float4* __restrict__ tris, int k, int anyhit,
-                      int* __restrict__ hit_out, float* __restrict__ t_out,
-                      int* __restrict__ visits_out, EmitOut emit,
-                      CountOut count) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!kCount && r >= n) return;
-  // count mode: a lane past n reads ray 0 and never walks
-  const int q = (kCount && r >= n) ? 0 : r;
-  Walk<kEmit> w;
-  w.ox = __ldg(origin + 3 * q + 0);
-  w.oy = __ldg(origin + 3 * q + 1);
-  w.oz = __ldg(origin + 3 * q + 2);
-  w.dx = __ldg(direction + 3 * q + 0);
-  w.dy = __ldg(direction + 3 * q + 1);
-  w.dz = __ldg(direction + 3 * q + 2);
-  w.inv_x = 1.0f / w.dx;
-  w.inv_y = 1.0f / w.dy;
-  w.inv_z = 1.0f / w.dz;
-  const int oct = (w.dx < 0.0f) * 4 + (w.dy < 0.0f) * 2 + (w.dz < 0.0f);
-  w.tab = nodes + (size_t)oct * m * 2;
-  w.tris = tris;
-  w.k = k;
-  w.anyhit = anyhit;
-  w.hit_t = __ldg(t_max + q);
-  // pre-order pointers only move forward, so a walk ends within m steps;
-  // the bound only guards against a malformed table
-  if (!kCount) {
-    for (int step = 0; w.i >= 0 && step < m + 4; ++step) w.step();
-  } else {
-    if (r >= n) w.i = -1;
-    int windows = 0, leafs = 0, tests = 0;
-    for (int step = 0;; ++step) {
-      const bool live = w.i >= 0 && step < m + 4;
-      if (!__any_sync(0xffffffffu, live)) break;
-      const bool leaf = live && w.step();
-      ++windows;
-      if (__ballot_sync(0xffffffffu, leaf) != 0u) ++leafs;
-      tests += leaf;
-    }
-    if (r >= n) return;
-    count.leaf_tests[r] = tests;
-    if ((threadIdx.x & 31) == 0) {
-      count.exec_windows[r >> 5] = windows;
-      count.exec_leafs[r >> 5] = leafs;
-    }
+  if (kCount && lane == 0) {
+    p.count.exec_windows[batch] = windows;
+    p.count.exec_leafs[batch] = leafs;
   }
-  const int hit_idx = w.hit_idx;
-  const float hit_t = w.hit_t;
-  const int win_c = w.win_c, win_j = w.win_j;
-  const float win_u = w.win_u, win_v = w.win_v;
-  hit_out[r] = hit_idx;
-  t_out[r] = hit_t;
-  visits_out[r] = w.visits;
+  if (r >= p.n) return;
+  if (kCount) p.count.leaf_tests[r] = tests;
+  p.hit_out[r] = hit_idx;
+  p.t_out[r] = hit_t;
+  p.visits_out[r] = visits;
   if (kEmit) {
     float uvx = 0.0f, uvy = 0.0f, fx = 0.0f, fy = 0.0f, fz = 0.0f;
     int mat = 0;
     if (hit_idx >= 0) {
-      const float4* row = emit.attrs + ((size_t)win_c * k + win_j) * 3;
+      const float4* row = p.emit.attrs + ((size_t)win_c * p.k + win_j) * 3;
       const float4 a = __ldg(row + 0);  // uv0.xy uv1.xy
       const float4 b = __ldg(row + 1);  // uv2.xy fn.xy
       const float4 c = __ldg(row + 2);  // fn.z mat
@@ -261,15 +351,65 @@ traverse_sweep_kernel(const float* __restrict__ origin,
       fz = c.x;
       mat = __float_as_int(c.y);
     }
-    emit.u[r] = win_u;
-    emit.v[r] = win_v;
-    emit.uv[2 * r + 0] = uvx;
-    emit.uv[2 * r + 1] = uvy;
-    emit.face_nrm[3 * r + 0] = fx;
-    emit.face_nrm[3 * r + 1] = fy;
-    emit.face_nrm[3 * r + 2] = fz;
-    emit.mat[r] = mat;
+    p.emit.u[r] = win_u;
+    p.emit.v[r] = win_v;
+    p.emit.uv[2 * r + 0] = uvx;
+    p.emit.uv[2 * r + 1] = uvy;
+    p.emit.face_nrm[3 * r + 0] = fx;
+    p.emit.face_nrm[3 * r + 1] = fy;
+    p.emit.face_nrm[3 * r + 2] = fz;
+    p.emit.mat[r] = mat;
   }
+}
+
+// Persistent: each warp takes batches of 32 consecutive rays until none
+// is left.
+template <bool kEmit, bool kCount>
+__global__ void __launch_bounds__(kBlock) traverse_sweep_kernel(Params p) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int n_batches = (p.n + kWarp - 1) / kWarp;
+  for (;;) {
+    int batch = 0;
+    if (lane == 0) batch = atomicAdd(p.next_batch, 1);
+    batch = __shfl_sync(kFull, batch, 0);
+    if (batch >= n_batches) return;
+    trace_batch<kEmit, kCount>(p, batch, lane);
+  }
+}
+
+// Resident blocks per SM of one instance (the occupancy calculator's
+// figure for kBlock threads and no shared memory), asked once.
+template <bool kEmit, bool kCount>
+int blocks_per_sm(int* out) {
+  static int cached = 0;
+  if (cached == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &cached, traverse_sweep_kernel<kEmit, kCount>, kBlock, 0);
+    if (err != cudaSuccess) {
+      cached = 0;
+      return (int)err;
+    }
+  }
+  *out = cached;
+  return 0;
+}
+
+// As many blocks as are resident on the card at once, or fewer when the
+// rays need fewer.
+template <bool kEmit, bool kCount>
+int launch(const Params& p, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int occ = blocks_per_sm<kEmit, kCount>(&per_sm);
+  if (occ != 0) return occ;
+  const int n_batches = (p.n + kWarp - 1) / kWarp;
+  const int needed = (n_batches + kBlock / kWarp - 1) / (kBlock / kWarp);
+  const int blocks = sms * per_sm < needed ? sms * per_sm : needed;
+  traverse_sweep_kernel<kEmit, kCount><<<blocks, kBlock, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -279,6 +419,8 @@ traverse_sweep_kernel(const float* __restrict__ origin,
 // face_nrm and mat; a non-null `exec_windows` selects count mode, which
 // writes exec_windows, exec_leafs and leaf_tests. The two modes are
 // exclusive; the pointers of a mode that is off are not read.
+// `next_batch` is one int32 on the card, zero at the launch (the
+// persistent schedule's batch counter).
 extern "C" int drt_traverse_sweep(const float* origin, const float* direction,
                                   const float* t_max, int n,
                                   const void* nodes, int m, const void* tris,
@@ -287,30 +429,27 @@ extern "C" int drt_traverse_sweep(const float* origin, const float* direction,
                                   float* v, float* uv, float* face_nrm,
                                   int* mat, int* exec_windows,
                                   int* exec_leafs, int* leaf_tests,
-                                  void* stream) {
+                                  int* next_batch, void* stream) {
   if (n <= 0) return 0;
+  if (k < 1 || next_batch == nullptr) return (int)cudaErrorInvalidValue;
   if (attrs != nullptr && exec_windows != nullptr)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kBlock - 1) / kBlock;
-  const EmitOut emit{(const float4*)attrs, u, v, uv, face_nrm, mat};
-  const CountOut count{exec_windows, exec_leafs, leaf_tests};
+  const Params p{origin, direction, t_max, n, (const float4*)nodes, m,
+                 (const float4*)tris, k, anyhit, hit_idx, t, visits,
+                 EmitOut{(const float4*)attrs, u, v, uv, face_nrm, mat},
+                 CountOut{exec_windows, exec_leafs, leaf_tests}, next_batch};
   cudaStream_t s = (cudaStream_t)stream;
-  const float4* nd = (const float4*)nodes;
-  const float4* tr = (const float4*)tris;
-  if (attrs != nullptr) {
-    traverse_sweep_kernel<true, false><<<blocks, kBlock, 0, s>>>(
-        origin, direction, t_max, n, nd, m, tr, k, anyhit, hit_idx, t,
-        visits, emit, count);
-  } else if (exec_windows != nullptr) {
-    traverse_sweep_kernel<false, true><<<blocks, kBlock, 0, s>>>(
-        origin, direction, t_max, n, nd, m, tr, k, anyhit, hit_idx, t,
-        visits, emit, count);
-  } else {
-    traverse_sweep_kernel<false, false><<<blocks, kBlock, 0, s>>>(
-        origin, direction, t_max, n, nd, m, tr, k, anyhit, hit_idx, t,
-        visits, emit, count);
-  }
-  return (int)cudaGetLastError();
+  if (attrs != nullptr) return launch<true, false>(p, s);
+  if (exec_windows != nullptr) return launch<false, true>(p, s);
+  return launch<false, false>(p, s);
+}
+
+// Resident blocks per SM of the instance `mode` (0 plain, 1 emit_attrs,
+// 2 counters) into *out; returns a cudaError_t (0 = success).
+extern "C" int drt_traverse_sweep_occupancy(int mode, int* out) {
+  if (mode == 1) return blocks_per_sm<true, false>(out);
+  if (mode == 2) return blocks_per_sm<false, true>(out);
+  return blocks_per_sm<false, false>(out);
 }
 
 extern "C" const char* drt_cuda_error_string(int code) {

@@ -20,8 +20,12 @@ emit_attrs) they also return the executed work: "exec_windows" and
 kernel counts per ray tile; the lockstep unit on the card is a warp of
 32 consecutive rays, so here exec_windows[w] is the loop iterations warp
 w executed (max visits over its lanes), exec_leafs[w] the iterations in
-which at least one of its lanes ran the K-wide leaf test, and
+which at least one of its lanes entered a leaf (the warp then tests the
+leaves of those lanes one after another, one triangle slot a lane), and
 leaf_tests[r] the leaves ray r tested. utils/roofline.py prices them.
+
+The kernel takes clusters of 1 to MAX_K triangles; both paths raise on
+another K, so the CPU and the card accept the same tables.
 """
 
 from __future__ import annotations
@@ -42,6 +46,10 @@ LAUNCHES = 0
 EMIT_LAUNCHES = 0
 COUNT_LAUNCHES = 0
 WARP = 32  # the lockstep unit of the counters
+# a served leaf takes ceil(K / 32) triangle slots a lane; scene builds
+# pick K = 8 to 64
+MAX_K = 256
+MODES = ("plain", "emit_attrs", "counters")  # the kernel's instances
 
 
 def _octant(d: torch.Tensor) -> torch.Tensor:
@@ -91,6 +99,9 @@ def _t_init(t_max, n: int, device) -> torch.Tensor:
 
 
 def _check_attrs(cb: ClusterBvh, emit_attrs: bool, counters: bool = False):
+    if not 1 <= cb.k <= MAX_K:
+        raise ValueError(f"clusters of K = {cb.k} triangles: the sweep "
+                         f"kernel takes 1 <= K <= {MAX_K}")
     if emit_attrs and counters:
         raise ValueError("emit_attrs and counters are separate kernel "
                          "modes; ask for one")
@@ -270,12 +281,32 @@ def load_kernel():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.drt_traverse_sweep.argtypes = [p, p, p, i, p, i, p, i, i,
                                            p, p, p, p, p, p, p, p, p,
-                                           p, p, p, p]
+                                           p, p, p, p, p]
         lib.drt_traverse_sweep.restype = ctypes.c_int
+        lib.drt_traverse_sweep_occupancy.argtypes = [
+            i, ctypes.POINTER(ctypes.c_int)]
+        lib.drt_traverse_sweep_occupancy.restype = ctypes.c_int
         lib.drt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.drt_cuda_error_string.restype = ctypes.c_char_p
         lib._drt_bound = True
     return lib
+
+
+def occupancy() -> dict:
+    """Resident blocks per SM of each kernel instance on the current card
+    (the CUDA occupancy calculator's figure; the persistent launch runs
+    that many blocks on every SM)."""
+    lib = load_kernel()
+    out = {}
+    for mode, name in enumerate(MODES):
+        blocks = ctypes.c_int(0)
+        err = lib.drt_traverse_sweep_occupancy(mode, ctypes.byref(blocks))
+        if err != 0:
+            msg = lib.drt_cuda_error_string(err).decode()
+            raise RuntimeError(f"traverse_sweep occupancy query failed: "
+                               f"{msg} (cudaError {err})")
+        out[name] = blocks.value
+    return out
 
 
 def device_tables(cb: ClusterBvh):
@@ -359,6 +390,8 @@ def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
     def ptr(key):  # NULL for the outputs of a mode that is off
         return out[key].data_ptr() if key in out else None
 
+    # the persistent schedule's batch counter, zero at the launch
+    next_batch = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -368,7 +401,8 @@ def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
             1 if anyhit else 0, ptr("hit_idx"), ptr("t"), ptr("visits"),
             None if attrs is None else attrs.data_ptr(), ptr("u"), ptr("v"),
             ptr("uv"), ptr("face_nrm"), ptr("mat"), ptr("exec_windows"),
-            ptr("exec_leafs"), ptr("leaf_tests"), stream)
+            ptr("exec_leafs"), ptr("leaf_tests"), next_batch.data_ptr(),
+            stream)
     if err != 0:
         msg = lib.drt_cuda_error_string(err).decode()
         raise RuntimeError(f"traverse_sweep kernel launch failed: {msg} "

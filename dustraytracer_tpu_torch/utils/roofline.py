@@ -18,7 +18,8 @@ multiply, divide, compare, min/max and select counts as one operation):
 - Möller–Trumbore per triangle, MT_OPS = 57: p = d × e2 (9), det (5),
   the parallel test (2), inv_det (select and divide, 2), tv (3), u (6),
   q = tv × e1 (9), v (6), t (6), the 6 compares and 1 add of `valid`,
-  and the 2 compares of the best-hit update;
+  and the 2 compares of the best-hit update (the warp's (t, id)
+  reduction since the warp-cooperative leaf test);
 - per ray once, RAY_OPS = 3: the inverse direction.
 """
 
@@ -49,14 +50,26 @@ def sweep_work(out: dict, k: int, tables_bytes: int = 0,
     triangle tables the kernel reads; `out_bytes`: the results it writes
     (default: those of `out`; pass another mode's to price that mode,
     whose rays need the same tests). Returns node and
-    triangle tests, FP32 operations, bytes, the executed leaf-lane
-    slots (32 per warp leaf iteration) and the useful share of them
-    (leaf tests / slots, the SIMT counterpart of the JAX package's
-    volume efficiency)."""
+    triangle tests, FP32 operations, bytes, and two shares of the
+    kernel's warp loop (the SIMT counterpart of the JAX package's volume
+    efficiency):
+
+    - `walk_useful_share` = node_tests / (32 * exec_windows): of the
+      lane slots of the warp iterations, the share whose lane was still
+      walking (slab-testing a node); the rest idled because their ray
+      had finished while another lane of the warp walked on.
+    - `useful_share` = leaf_tests / leaf_lane_slots, leaf_lane_slots =
+      32 * exec_leafs: of the lanes of the iterations in which the warp
+      tested leaves, the share that had entered a leaf. The warp serves
+      those lanes' leaves one after another, each with one triangle slot
+      a lane, so 32 * useful_share is the mean number of leaves served
+      per such iteration; it no longer counts lanes left idle during a
+      leaf test (with K < 32, 32 - K lanes idle in each served leaf)."""
     n = out["visits"].numel()
     node_tests = int(out["visits"].sum())
     leaf_tests = int(out["leaf_tests"].sum())
     slots = WARP * int(out["exec_leafs"].sum())
+    windows = int(out["exec_windows"].sum())
     if out_bytes is None:
         out_bytes = nbytes(*out.values())
     return {
@@ -69,7 +82,9 @@ def sweep_work(out: dict, k: int, tables_bytes: int = 0,
         "bytes": RAY_BYTES * n + out_bytes + tables_bytes,
         "leaf_lane_slots": slots,
         "useful_share": leaf_tests / slots if slots else 0.0,
-        "exec_windows": int(out["exec_windows"].sum()),
+        "walk_useful_share": node_tests / (WARP * windows) if windows
+        else 0.0,
+        "exec_windows": windows,
         "exec_leafs": int(out["exec_leafs"].sum()),
     }
 

@@ -308,6 +308,8 @@ def test_roofline_prices_the_counted_work(soup):
     assert w["bytes"] == 28 * 256 + 12 * 256 + 4 * 256 + 8 * 8 + tables
     assert 0.0 < w["useful_share"] <= 1.0
     assert w["leaf_lane_slots"] == 32 * int(out["exec_leafs"].sum())
+    assert w["walk_useful_share"] == nt / (32 * int(
+        out["exec_windows"].sum()))
     assert roofline.bound_seconds(67e12, 1.0) == (1.0, "operations")
     assert roofline.bound_seconds(1.0, 3.35e12) == (1.0, "bytes")
 
