@@ -73,6 +73,34 @@ scene the size of a dense bundled scene, generated from a seed:
                reload, die in nvcc and rebuild the add_salt kernel
                (seconds and results of each)
 
+Phases 11-15 run on the PBR sphere (sphere_doc(pbr=True): the sphere
+metallic 0.6, roughness 0.3, a glass pane before it, an emissive panel
+behind it; 16,134 triangles, so "auto" still picks the kernel fetch),
+after phase 8:
+
+ 11. pbr       render_progressive at 512x512, 4 bounces, 8 spp with
+               shading="pbr": bounces x spp launches with emission and as
+               many any-hit; card against CPU at 96x96; the committed
+               golden tests/goldens/glass_panes_exact.npz regenerated on
+               the card, within the render tolerance
+ 12. kernel_continuation  K1 (plain, any-hit, emit) against its twin bit
+               for bit on the soft-edge continuation wave (each primary
+               hit's ray restarted a hair past it) and on the refracted
+               rays of a PBR sample's second wave; hits at t below 1e-3
+ 13. soft_edges  the gradient step at 512x512 b4 with soft_edges=0.05:
+               2 x bounces closest-hit and bounces any-hit launches,
+               finite, nonzero vertex gradients, ms per step; card
+               against CPU at 48x48 b2 within the gradient tolerance
+ 14. textures  decode_textures: the float render equals the u8 render bit
+               for bit; the gradient step on the texels (ms per step);
+               the texel fetch's forward and backward device ms
+               (torch.profiler) at 262,144 lookups
+ 15. debug     every debug view at 96x96, card against CPU, one closest
+               launch each
+ 16. optimize_pbr  the optimizer self-test of phase 9 on the PBR sphere's
+               .glb with --optimize emissive metallic roughness
+               transmission ior (shading="pbr"); the loss must fall
+
 Each kernel's launch counts are set to 0 just before the path that runs
 it and read just after. Each phase prints one JSON line; then a
 {"kernels": [...]} line, the nvidia-smi line and, last, {"ok": true,
@@ -128,6 +156,7 @@ TIE_CALLS = {"plain": {}, "anyhit": {"anyhit": True},  # keyword arguments
              "counters": {"counters": True}}
 TIE_TRIS = 2048
 TIE_RAYS = 32768
+PBR_OPT = ("emissive", "metallic", "roughness", "transmission", "ior")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -140,8 +169,9 @@ def emit(phase: str, **kw) -> None:
 
 
 def write_glb(path: Path, doc) -> None:
-    """The document's geometry and material factors as a .glb (no images):
-    one mesh per primitive, u32 indices."""
+    """The document's geometry and material factors (base colour,
+    metallic, roughness, emission, transmission, ior) as a .glb, without
+    images: one mesh per primitive, u32 indices."""
     blob, views, accessors, meshes, nodes = b"", [], [], [], []
 
     def add(arr, target_type, comp, count):
@@ -158,6 +188,19 @@ def write_glb(path: Path, doc) -> None:
             acc["max"] = flat.max(0).tolist()
         accessors.append(acc)
         return len(accessors) - 1
+
+    def material(m):
+        out = {"name": m.name, "pbrMetallicRoughness": {
+            "baseColorFactor": [*map(float, m.base_color), 1.0],
+            "metallicFactor": float(m.metallic),
+            "roughnessFactor": float(m.roughness)},
+            "emissiveFactor": [*map(float, m.emissive)]}
+        if m.transmission or m.ior != 1.5:
+            out["extensions"] = {
+                "KHR_materials_transmission": {
+                    "transmissionFactor": float(m.transmission)},
+                "KHR_materials_ior": {"ior": float(m.ior)}}
+        return out
 
     for mi, (name, prims) in enumerate(doc.meshes):
         gprims = []
@@ -178,9 +221,7 @@ def write_glb(path: Path, doc) -> None:
         "asset": {"version": "2.0"}, "scene": 0,
         "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
         "meshes": meshes,
-        "materials": [{"name": m.name, "pbrMetallicRoughness": {
-            "baseColorFactor": [*map(float, m.base_color), 1.0],
-            "metallicFactor": 0.0}} for m in doc.materials],
+        "materials": [material(m) for m in doc.materials],
         "buffers": [{"byteLength": len(blob)}],
         "bufferViews": views, "accessors": accessors,
     }
@@ -210,6 +251,15 @@ def sweep_registers(log: str) -> dict:
             regs.setdefault(entry, {})["registers"] = int(
                 words[words.index("registers") - 1])
     return regs
+
+
+def used_registers(log: str):
+    """Registers of the first kernel in a build log's ptxas -v lines."""
+    for ln in log.splitlines():
+        if "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            return int(words[words.index("registers") - 1])
+    return None
 
 
 def tie_soup(k: int, seed: int = 5):
@@ -284,6 +334,320 @@ def compare_images(a: torch.Tensor, b: torch.Tensor) -> dict:
             "psnr_db": 10.0 * np.log10(1.0 / max(mse, 1e-12))}
 
 
+def grad_card_vs_cpu(scene, camera, lights, settings, scene_cpu) -> dict:
+    """The gradient step at CPU_GRAD_SIZE² on the card and on the CPU
+    (twin): loss within LOSS_RTOL relative, every gradient within atol
+    2e-4 max|g| + rtol GRAD_RTOL of the CPU's; the excess over that bound
+    of each (<= 0 passes)."""
+    from dustraytracer_tpu_torch.tools.grad_bench import (GRAD_PARAMS,
+                                                          grad_step)
+
+    s = CPU_GRAD_SIZE
+    loss_k, g_k = grad_step(scene, camera, lights, settings, s, s)
+    loss_c, g_c = grad_step(scene_cpu, camera.to("cpu"), lights.to("cpu"),
+                            settings, s, s)
+    rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+    excess = {}
+    for k in GRAD_PARAMS:
+        gk, gc = g_k[k].cpu(), g_c[k]
+        bound = 2e-4 * float(gc.abs().max()) + GRAD_RTOL * gc.abs()
+        excess[k] = float(((gk - gc).abs() - bound).max())
+    check(rel <= LOSS_RTOL, f"grad card vs cpu: loss rel diff {rel}")
+    bad = {k: e for k, e in excess.items() if e > 0.0}
+    check(not bad, f"grad card vs cpu: beyond tolerance by {bad}")
+    return {"loss_card": float(loss_k), "loss_cpu": float(loss_c),
+            "loss_rel_diff": rel, "max_excess_over_tol": excess}
+
+
+def run_optimizer(glb: Path, out: Path, what, env) -> tuple:
+    """The optimizer CLI's self-test on `glb` in a subprocess: OPT_STEPS
+    Adam steps on the parameters `what` at 128x128, OPT_BOUNCES bounces;
+    the loss must fall, a checkpoint be written, and each step launch K1
+    once per bounce with emission and once without. Returns (results,
+    launches)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dustraytracer_tpu_torch.apps.optimize",
+         "--scene", str(glb), "--self-test", "--optimize", *what,
+         "--size", "128x128", "--steps", str(OPT_STEPS),
+         "--bounces", str(OPT_BOUNCES), "--checkpoint-every", "10",
+         "--camera-pos", "0,1.5,5", "--look-at", "0,0.5,0", "--vfov", "45",
+         "--out", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"optimize {what} rc {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout)
+    first, final = res["history"][0]["loss"], res["final_loss"]
+    check(final < first, f"optimize {what}: loss {first} -> {final} did "
+          "not fall")
+    check((out / "ckpt.npz").exists(), "optimize wrote no ckpt.npz")
+    got = tuple(res["traversal_launches"])
+    want = OPT_STEPS * OPT_BOUNCES
+    check(got == (want, want), f"optimize {what} launched {got} (plain, "
+          f"emit), expected {want} each")
+    return ({"first_loss": first, "final_loss": final,
+             "seconds_per_step": res["seconds_per_step"],
+             "param_mae": res["param_mae"], "wall_seconds": wall},
+            {"traverse_sweep": got[0], "traverse_sweep[emit_attrs]": got[1]})
+
+
+class record_sweep_calls:
+    """Within the block, every K1 call the integrator makes appends its
+    (origin, direction, keyword arguments) to `calls` and runs as
+    before."""
+
+    def __enter__(self):
+        from dustraytracer_tpu_torch.render import integrator
+
+        self.calls = []
+        self.orig = integrator.traverse_cluster_sweep
+
+        def rec(cb, o, d, **kw):
+            self.calls.append((o.clone(), d.clone(), kw))
+            return self.orig(cb, o, d, **kw)
+
+        integrator.traverse_cluster_sweep = rec
+        return self.calls
+
+    def __exit__(self, *exc):
+        from dustraytracer_tpu_torch.render import integrator
+
+        integrator.traverse_cluster_sweep = self.orig
+        return False
+
+
+def kernel_against_twin(cb, o, d, wave: str, **kw) -> dict:
+    """K1 and its twin on one wave, every output bit for bit."""
+    from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+
+    rk = ts.traverse_cluster_sweep(cb, o, d, **kw)
+    rt = ts.traverse_cluster_sweep_reference(cb, o, d, **kw)
+    torch.cuda.synchronize()
+    check(rk.keys() == rt.keys(), f"{wave} {kw}: keys")
+    for key in rk:
+        check(torch.equal(rk[key], rt[key]),
+              f"{wave} {kw}: {key} differs from the twin in "
+              f"{int((rk[key] != rt[key]).sum())} entries")
+    return rk
+
+
+def pbr_phases(camera, lights, launches: dict) -> None:
+    """Phases 11-15 on the PBR sphere (tools/grad_bench.py::sphere_doc
+    (pbr=True)): the PBR slice, K1 on soft-edge continuation and refracted
+    waves, the soft-edge vertex step, float textures and the debug views.
+    Adds each path's launches to `launches`."""
+    from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+    from dustraytracer_tpu_torch.render.film import (film_image,
+                                                     render_progressive)
+    from dustraytracer_tpu_torch.render.integrator import (_resolve_fetch,
+                                                           render_sample)
+    from dustraytracer_tpu_torch.render.texture import (decode_textures,
+                                                        sample_texture)
+    from dustraytracer_tpu_torch.scene.camera import make_camera
+    from dustraytracer_tpu_torch.scene.scene import build_scene
+    from dustraytracer_tpu_torch.scene.settings import (DebugMode,
+                                                        LightParams,
+                                                        RenderMode,
+                                                        RenderSettings)
+    from dustraytracer_tpu_torch.tools.ab_main_paths import sweep_waves
+    from dustraytracer_tpu_torch.tools.grad_bench import (device_ms,
+                                                          glass_panes_doc,
+                                                          grad_step,
+                                                          median_ms,
+                                                          sphere_doc)
+
+    dev = torch.device("cuda")
+    pbr_cpu = build_scene(sphere_doc(pbr=True))
+    pbr = pbr_cpu.to(dev)
+    cb = pbr.cluster
+    no_kernel = dict.fromkeys(read_launches(), 0)
+
+    def compare_96(st, what):
+        """The 96x96 sample on the card and on the CPU, compared."""
+        b = BACKEND_SIZE
+        with torch.inference_mode():
+            a = render_sample(pbr, camera, lights, 0, width=b, height=b,
+                              settings=st)
+            c = render_sample(pbr_cpu, camera.to("cpu"), lights.to("cpu"),
+                              0, width=b, height=b, settings=st)
+        res = compare_images(a, c)
+        check(res["frac_within"] >= PIX_FRAC and res["psnr_db"] > MIN_PSNR,
+              f"{what} card vs cpu: {res}")
+        return res
+
+    # 11. the PBR slice
+    pset = RenderSettings(bounces=BOUNCES, shading="pbr")
+    fetch = _resolve_fetch(pbr, pset)
+    check(fetch == "kernel", f"pbr: shade_fetch 'auto' resolved to {fetch}")
+    render_progressive(pbr, camera, pset, width=WIDTH, height=HEIGHT,
+                       spp=1)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    film = render_progressive(pbr, camera, pset, width=WIDTH, height=HEIGHT,
+                              spp=SPP)
+    e1.record()
+    torch.cuda.synchronize()
+    launches["pbr"] = read_launches()
+    check(launches["pbr"] == {**no_kernel, "traverse_sweep": BOUNCES * SPP,
+                              "traverse_sweep[emit_attrs]": BOUNCES * SPP},
+          f"pbr launched {launches['pbr']}")
+    img = film_image(film)
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
+          "pbr render not finite or black")
+    cmp = compare_96(RenderSettings(bounces=BOUNCES, shading="pbr"), "pbr")
+    # the committed golden of the glass scene, regenerated on the card
+    with np.load(ROOT / "tests" / "goldens" / "glass_panes_exact.npz") as z:
+        golden = torch.from_numpy(z["image"].astype(np.float32))
+        meta = json.loads(str(z["meta"]))
+    gscene = build_scene(glass_panes_doc()).to(dev)
+    gset = RenderSettings(bounces=meta["bounces"], **meta["overrides"])
+    gcam = make_camera(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in meta["camera"].items()}, device=dev)
+    glights = LightParams.from_settings(gset, device=dev)
+    n = meta["size"]
+    with torch.inference_mode():
+        gimg = sum(render_sample(gscene, gcam, glights, i, width=n,
+                                 height=n, settings=gset)
+                   for i in range(meta["spp"])) / meta["spp"]
+    gcmp = compare_images(gimg, golden)
+    check(gcmp["frac_within"] >= PIX_FRAC and gcmp["psnr_db"] > MIN_PSNR,
+          f"glass_panes golden on the card: {gcmp}")
+    emit("pbr", size=[WIDTH, HEIGHT], bounces=BOUNCES, spp=SPP,
+         triangles=pbr.n_tris, padded_triangles=int(pbr.tri_pos.shape[0]),
+         shade_fetch=fetch, launches=launches["pbr"],
+         mean=float(img.mean()), ms_per_sample=e0.elapsed_time(e1) / SPP,
+         card_vs_cpu_96=cmp, glass_panes_golden=gcmp)
+
+    # 12. K1 against its twin on the rays PBR and soft edges add:
+    # continuations a hair past each primary hit, and refracted rays
+    wo, wd, _ = sweep_waves(pbr, camera, lights, WIDTH)["primary"]
+    prim = ts.traverse_cluster_sweep(cb, wo, wd)
+    hit = prim["hit_idx"] >= 0
+    adv = torch.where(hit, prim["t"] * (1.0 + 1e-4) + 1e-4, 0.0)
+    co = torch.where(hit[:, None], wo + wd * adv[:, None], 3.0e37)
+    with torch.inference_mode(), record_sweep_calls() as calls:
+        render_sample(pbr, camera, lights, 0, width=WIDTH, height=HEIGHT,
+                      settings=pset)
+    # the second closest-hit wave starts at the first hits; the rays that
+    # left the pane (z = 2.2, facing +z) backwards were refracted
+    ro, rd, _ = [c for c in calls if not c[2].get("anyhit")][1]
+    refr = ((ro[:, 2] < 2.2) & (ro[:, 2] > 2.19) & (rd[:, 2] < 0.0)
+            & (ro[:, 0].abs() <= 0.8) & (ro[:, 1] >= 0.3) & (ro[:, 1] <= 1.9))
+    ro, rd = ro[refr].contiguous(), rd[refr].contiguous()
+    check(ro.shape[0] > 1000, f"only {ro.shape[0]} refracted rays")
+    cont = {}
+    for wave, (o, d) in (("continuation", (co, wd)), ("refracted", (ro, rd))):
+        rk = kernel_against_twin(cb, o, d, wave)
+        kernel_against_twin(cb, o, d, wave, anyhit=True)
+        kernel_against_twin(cb, o, d, wave, emit_attrs=True)
+        h = rk["hit_idx"] >= 0
+        cont[wave] = {
+            "rays": int(o.shape[0]), "hits": int(h.sum()),
+            "hits_t_below_1e-3": int((h & (rk["t"] < 1e-3)).sum()),
+            "min_t": float(rk["t"][h].min()) if bool(h.any()) else None,
+            "kernel_ms": device_ms(lambda: ts.traverse_cluster_sweep(
+                cb, o, d), SWEEP_KERNEL),
+            "kernel_anyhit_ms": device_ms(lambda: ts.traverse_cluster_sweep(
+                cb, o, d, anyhit=True), SWEEP_KERNEL)}
+    emit("kernel_continuation", **cont)
+
+    # 13. the soft-edge gradient step: two closest hits and one any-hit
+    # per bounce, gather fetch
+    sset = RenderSettings(bounces=BOUNCES, enable_tonemap=False,
+                          enable_gamma=False, shading="pbr", soft_edges=0.05)
+    fetch = _resolve_fetch(pbr, sset)
+    check(fetch == "gather", f"soft edges: fetch {fetch}")
+    grad_step(pbr, camera, lights, sset, WIDTH, HEIGHT)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    loss, grads = grad_step(pbr, camera, lights, sset, WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    launches["soft_edges"] = read_launches()
+    check(launches["soft_edges"] == {**no_kernel,
+                                     "traverse_sweep": 3 * BOUNCES},
+          f"soft edges launched {launches['soft_edges']}, expected "
+          f"{2 * BOUNCES} closest and {BOUNCES} any-hit")
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"soft edges: {k} not finite")
+    check(float(grads["tri_pos"].abs().max()) > 0.0,
+          "soft edges: vertex gradient all zero")
+    step_ms = median_ms(lambda: grad_step(pbr, camera, lights, sset, WIDTH,
+                                          HEIGHT))
+    emit("soft_edges", size=[WIDTH, HEIGHT], bounces=BOUNCES,
+         soft_edges=0.05, shading="pbr", loss=float(loss),
+         launches=launches["soft_edges"], ms_per_step=step_ms,
+         tri_pos_grad_max_abs=float(grads["tri_pos"].abs().max()),
+         card_vs_cpu=grad_card_vs_cpu(
+             pbr, camera, lights, sset.replace(bounces=CPU_GRAD_BOUNCES),
+             pbr_cpu))
+    del grads
+
+    # 14. float textures: the same image as u8, and a step on the texels
+    tset = RenderSettings(bounces=BOUNCES, enable_tonemap=False,
+                          enable_gamma=False, shading="pbr")
+    fscene = decode_textures(pbr)
+    with torch.inference_mode():
+        u8 = render_sample(pbr, camera, lights, 0, width=WIDTH,
+                           height=HEIGHT, settings=tset)
+        f32 = render_sample(fscene, camera, lights, 0, width=WIDTH,
+                            height=HEIGHT, settings=tset)
+    check(torch.equal(u8, f32), "float texture render differs from u8 by "
+          f"{float((u8 - f32).abs().max())}")
+
+    def tex_step():
+        leaf = fscene.tex_stack.detach().clone().requires_grad_(True)
+        img = render_sample(fscene.replace(tex_stack=leaf), camera, lights,
+                            0, width=WIDTH, height=HEIGHT, settings=tset)
+        img.mean().backward()
+        return leaf.grad
+
+    tex_step()  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    g = tex_step()
+    torch.cuda.synchronize()
+    launches["textures"] = read_launches()
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0,
+          "texture gradient not finite or all zero")
+    # the texel fetch alone, at the step's shape: WIDTHxHEIGHT lookups of
+    # the 256x256 ground texture
+    gen = torch.Generator().manual_seed(0)
+    uv = torch.rand(WIDTH * HEIGHT, 2, generator=gen).mul(40.0).to(dev)
+    tid = torch.zeros(WIDTH * HEIGHT, dtype=torch.int32, device=dev)
+    stack = fscene.tex_stack.detach().clone().requires_grad_(True)
+    texels = sample_texture(fscene.replace(tex_stack=stack), tid, uv)
+    up = torch.ones_like(texels)
+    emit("textures", size=[WIDTH, HEIGHT], bounces=BOUNCES,
+         float_equals_u8=True, launches=launches["textures"],
+         ms_per_step=median_ms(tex_step),
+         texel_grad_max_abs=float(g.abs().max()),
+         texture_fetch_lookups=WIDTH * HEIGHT,
+         texture_fwd_device_ms=device_ms(
+             lambda: sample_texture(fscene, tid, uv)),
+         texture_bwd_device_ms=device_ms(
+             lambda: texels.backward(up, retain_graph=True)))
+
+    # 15. every debug view, card against CPU; one closest trace each
+    views, launches["debug"] = {}, dict(no_kernel)
+    for dm in DebugMode:
+        st = RenderSettings(render_mode=RenderMode.DEBUG, debug_mode=dm)
+        reset_launches()
+        with torch.inference_mode():
+            render_sample(pbr, camera, lights, 0, width=BACKEND_SIZE,
+                          height=BACKEND_SIZE, settings=st)
+        torch.cuda.synchronize()
+        got = read_launches()
+        check(got == {**no_kernel, "traverse_sweep[emit_attrs]": 1},
+              f"debug {dm.name} launched {got}")
+        launches["debug"] = {k: launches["debug"][k] + got[k] for k in got}
+        views[dm.name] = compare_96(st, f"debug {dm.name}")
+    emit("debug", size=[BACKEND_SIZE] * 2, launches=launches["debug"],
+         card_vs_cpu=views)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -306,7 +670,7 @@ def main() -> int:
                                                         RenderSettings)
     from dustraytracer_tpu_torch.tools import repro_cache_hang
     from dustraytracer_tpu_torch.tools.ab_main_paths import sweep_waves
-    from dustraytracer_tpu_torch.tools.grad_bench import (GRAD_PARAMS, POSE,
+    from dustraytracer_tpu_torch.tools.grad_bench import (POSE,
                                                           SMALL_SPHERE,
                                                           device_ms,
                                                           grad_step,
@@ -555,6 +919,8 @@ def main() -> int:
           for wave, (wo, wd, ah) in waves.items()}
     torch.cuda.synchronize()
     launches["kernel_pallas"] = read_launches()
+    k2_occ = tp.occupancy()
+    check(k2_occ > 0, f"traverse_pallas occupancy {k2_occ}")
     check(launches["kernel_pallas"]["traverse_pallas"] == len(waves),
           f"traverse_pallas launched {launches['kernel_pallas']}")
     base_tables = nbytes(tp.device_base_nodes(cb), tris_t)
@@ -824,52 +1190,24 @@ def main() -> int:
 
     # 8. the gradient step on the card (kernel) and on the CPU (twin)
     cset = gset.replace(bounces=CPU_GRAD_BOUNCES, shade_fetch="kernel")
-    s = CPU_GRAD_SIZE
-    loss_k, g_k = grad_step(scene, camera, lights, cset, s, s)
-    loss_c, g_c = grad_step(scene_cpu, camera.to("cpu"), lights.to("cpu"),
-                            cset, s, s)
-    rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
-    check(rel <= LOSS_RTOL, f"grad card vs cpu: loss rel diff {rel}")
-    excess = {}
-    for k in GRAD_PARAMS:
-        gk, gc = g_k[k].cpu(), g_c[k]
-        bound = 2e-4 * float(gc.abs().max()) + GRAD_RTOL * gc.abs()
-        excess[k] = float(((gk - gc).abs() - bound).max())
-        check(excess[k] <= 0.0, f"grad card vs cpu: {k} beyond tolerance "
-              f"by {excess[k]}")
-    emit("grad_card_vs_cpu", size=[s, s], bounces=CPU_GRAD_BOUNCES,
-         loss_card=float(loss_k), loss_cpu=float(loss_c), loss_rel_diff=rel,
-         max_excess_over_tol=excess)
+    emit("grad_card_vs_cpu", size=[CPU_GRAD_SIZE] * 2,
+         bounces=CPU_GRAD_BOUNCES,
+         **grad_card_vs_cpu(scene, camera, lights, cset, scene_cpu))
 
-    # 9. the optimizer CLI
-    out = Path(tmp.name) / "opt"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "dustraytracer_tpu_torch.apps.optimize",
-         "--scene", str(glb), "--self-test", "--optimize", "albedo",
-         "lights", "--size", "128x128", "--steps", str(OPT_STEPS),
-         "--bounces", str(OPT_BOUNCES), "--checkpoint-every", "10",
-         "--camera-pos", "0,1.5,5", "--look-at", "0,0.5,0", "--vfov", "45",
-         "--out", str(out)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"optimize rc {proc.returncode}:\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    res = json.loads(proc.stdout)
-    first, final = res["history"][0]["loss"], res["final_loss"]
-    check(final < first, f"optimize: loss {first} -> {final} did not fall")
-    check((out / "ckpt.npz").exists(), "optimize wrote no ckpt.npz")
-    opt_launches = tuple(res["traversal_launches"])
-    check(opt_launches == (OPT_STEPS * OPT_BOUNCES, OPT_STEPS * OPT_BOUNCES),
-          f"optimize launched {opt_launches} (plain, emit), "
-          f"expected {OPT_STEPS * OPT_BOUNCES} each")
-    launches["optimize"] = {"traverse_sweep": opt_launches[0],
-                            "traverse_sweep[emit_attrs]": opt_launches[1]}
-    emit("optimize", steps=OPT_STEPS, size=[128, 128], bounces=OPT_BOUNCES,
-         first_loss=first, final_loss=final,
-         seconds_per_step=res["seconds_per_step"],
-         param_mae=res["param_mae"], launches=launches["optimize"],
-         wall_seconds=wall)
+    # 11.-15. PBR and glass, K1 on continuation and refracted rays, soft
+    # edges, float textures and the debug views, on the PBR sphere
+    pbr_phases(camera, lights, launches)
+
+    # 9. the optimizer CLI: albedo and lights; then the PBR parameters
+    for key, what, sc in (("optimize", ("albedo", "lights"), glb),
+                          ("optimize_pbr", PBR_OPT, None)):
+        if sc is None:
+            sc = Path(tmp.name) / "smoke_pbr.glb"
+            write_glb(sc, sphere_doc(pbr=True))
+        res, launches[key] = run_optimizer(sc, Path(tmp.name) / key, what,
+                                           env)
+        emit(key, steps=OPT_STEPS, size=[128, 128], bounces=OPT_BOUNCES,
+             optimize=list(what), **res, launches=launches[key])
     tmp.cleanup()
 
     # 10. the build cache: four fresh processes build, reload, die in
@@ -925,7 +1263,8 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_res[prim]["kernel_ms"],
          "plain_ms": k2_res[prim]["twin_ms"],
          "bound_ms": k2_res[prim]["bound_ms"],
-         "bound_by": k2_res[prim]["bound_by"]},
+         "bound_by": k2_res[prim]["bound_by"], "blocks_per_sm": k2_occ,
+         "registers": used_registers(recs["traverse_pallas"]["log"])},
         {"name": "add_salt", "source": src + "add_salt.cu",
          "replaces": "tools/repro_cache_hang.py:52",
          "max_abs_err": a_kid["max_abs_err"], "ms": a_kid["ms"],

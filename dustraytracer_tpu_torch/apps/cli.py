@@ -1,12 +1,18 @@
 """Headless CLI (port of apps/cli.py): render a glTF scene progressively
-to PNG and print a metrics JSON with the same keys as the JAX CLI.
+to PNG and print a metrics JSON with the same keys as the JAX CLI, or
+print a scene's statistics.
 
 Usage:
   python -m dustraytracer_tpu_torch.apps.cli render --scene scene.glb \\
       --spp 64 --bounces 2 --size 512x512 --out img.png [--device cuda]
+  python -m dustraytracer_tpu_torch.apps.cli render --debug-view bvh ...
+  python -m dustraytracer_tpu_torch.apps.cli stats --scene scene.glb
 
 `--device cuda` (the default) needs a CUDA card and raises without one;
 `--device cpu` renders with the traversal's plain PyTorch twin.
+`--checkpoint film.npz` resumes the film from that file if it exists
+and saves it when the render ends. `--devices` (pixels sharded over
+devices) is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,18 +67,33 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--shading", choices=["reference", "pbr"],
                    default="reference")
     r.add_argument("--debug-view",
-                   choices=["albedo", "normal", "barycentric", "uvs", "bvh"])
+                   choices=["albedo", "normal", "barycentric", "uvs", "bvh"],
+                   help="render a debug head instead of the beauty pass")
     r.add_argument("--devices", type=int, default=0,
                    help="shard over N devices (not yet ported)")
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda runs the CUDA kernels and needs a card")
     r.add_argument("--metrics-out", help="write render metrics JSON here")
-    r.add_argument("--checkpoint", help="film checkpoint (not yet ported)")
+    r.add_argument("--checkpoint", help="film checkpoint path (.npz); "
+                   "resumes if it exists, saves on completion")
+
+    st = sub.add_parser("stats", help="print scene statistics JSON")
+    st.add_argument("--scene", required=True)
     return p
 
 
 def _not_ported(flag: str):
     return NotImplementedError(f"{flag} not yet ported, see ROADMAP.md")
+
+
+def cmd_stats(args) -> int:
+    from dustraytracer_tpu_torch.scene import load_scene
+
+    t0 = time.perf_counter()
+    out = dict(load_scene(args.scene).stats)
+    out["ingest_seconds"] = round(time.perf_counter() - t0, 3)
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def cmd_render(args) -> int:
@@ -82,16 +103,16 @@ def cmd_render(args) -> int:
                                                      film_image, film_init)
     from dustraytracer_tpu_torch.render.integrator import render_sample
     from dustraytracer_tpu_torch.scene import load_scene, make_camera
-    from dustraytracer_tpu_torch.scene.settings import (LightParams,
+    from dustraytracer_tpu_torch.scene.settings import (DebugMode,
+                                                        LightParams,
+                                                        RenderMode,
                                                         RenderSettings)
+    from dustraytracer_tpu_torch.utils.checkpoint import (load_film,
+                                                          save_film)
     from dustraytracer_tpu_torch.utils.image import save_png
 
     if args.devices > 0:
         raise _not_ported("--devices")
-    if args.checkpoint:
-        raise _not_ported("--checkpoint")
-    if args.debug_view:
-        raise _not_ported("--debug-view")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: torch.cuda.is_available() is "
                            "False (use --device cpu for the CPU twin)")
@@ -115,9 +136,20 @@ def cmd_render(args) -> int:
         alpha_test=args.alpha_test, russian_roulette=args.russian_roulette,
         smooth_shading=args.smooth_shading, tex_filter=args.tex_filter,
         shading=args.shading, shade_fetch=args.shade_fetch)
+    if args.debug_view:
+        settings = settings.replace(
+            render_mode=RenderMode.DEBUG,
+            debug_mode=DebugMode[args.debug_view.upper()])
     lights = LightParams.from_settings(settings, device=device)
     film = film_init(width, height, device=device)
+    if args.checkpoint:
+        resumed = load_film(args.checkpoint, width, height, device=device)
+        if resumed is not None:
+            film = resumed
+            print(f"resumed from {args.checkpoint} at sample {film.frame}",
+                  file=sys.stderr)
     spp = min(args.spp, settings.max_samples)
+    todo = max(spp - film.frame, 0)
 
     # set-up outside the timed render (the JAX CLI's compile step): build
     # or load the kernel, pack the scene's device tables and load torch's
@@ -135,7 +167,7 @@ def cmd_render(args) -> int:
         ev1 = torch.cuda.Event(enable_timing=True)
         ev0.record()
     t0 = time.perf_counter()
-    film = film_accumulate(scene, camera, lights, film, spp, width=width,
+    film = film_accumulate(scene, camera, lights, film, todo, width=width,
                            height=height, settings=settings)
     if cuda:
         ev1.record()
@@ -145,21 +177,23 @@ def cmd_render(args) -> int:
         render_s = time.perf_counter() - t0
 
     save_png(args.out, film_image(film))
+    if args.checkpoint:
+        save_film(args.checkpoint, film)
 
     metrics = {
         "scene": args.scene,
         "triangles": scene.n_tris,
         "size": [width, height],
-        "spp": spp,
+        "spp": todo,
         "bounces": args.bounces,
         "ingest_seconds": round(ingest_s, 3),
         "compile_seconds": round(compile_s, 3),
         "render_seconds": round(render_s, 4),
-        "samples_per_second": round(spp / render_s, 2) if render_s > 0
-        and spp else None,
+        "samples_per_second": round(todo / render_s, 2) if render_s > 0
+        and todo else None,
         "mrays_per_second": round(
-            width * height * spp * 2 * args.bounces / render_s / 1e6, 2)
-        if render_s > 0 and spp else None,
+            width * height * todo * 2 * args.bounces / render_s / 1e6, 2)
+        if render_s > 0 and todo else None,
         "devices": 1,
         "device": (torch.cuda.get_device_name(device) if cuda else "cpu"),
         "out": args.out,
@@ -173,6 +207,8 @@ def cmd_render(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "stats":
+        return cmd_stats(args)
     return cmd_render(args)
 
 

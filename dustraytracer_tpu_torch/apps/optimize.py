@@ -9,12 +9,13 @@ Usage:
   python -m dustraytracer_tpu_torch.apps.optimize --scene x.glb \\
       --self-test --optimize albedo lights --steps 100 --out recovered/
 
-The self-test scramble draws with numpy from a fixed seed. Options that
-need what the port does not run yet raise NotImplementedError: pixels
-sharded over devices (--devices), parameters that only PBR shading
-sees (emissive, metallic, roughness, transmission, ior), texture texels,
-and soft edges (the default when optimizing vertices; pass
---soft-edges 0).
+The self-test scramble draws with numpy from a fixed seed. Parameters
+that only PBR shading sees (emissive, metallic, roughness, transmission,
+ior) switch the render to shading="pbr"; `textures` first decodes the u8
+texture stack to linear float32 texels (render/texture.py
+decode_textures); `vertices` renders with soft edges 0.05 unless
+--soft-edges says otherwise. Pixels sharded over devices (--devices)
+are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from dustraytracer_tpu_torch.ops import traverse_sweep as ts
 from dustraytracer_tpu_torch.parallel.shard import apply_params
 from dustraytracer_tpu_torch.render.integrator import (render_pixels,
                                                        render_sample)
+from dustraytracer_tpu_torch.render.texture import decode_textures
 from dustraytracer_tpu_torch.scene import load_scene, make_camera
 from dustraytracer_tpu_torch.scene.settings import (LightParams,
                                                     RenderSettings)
@@ -213,17 +215,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.devices > 0:
         raise _not_ported("--devices (pixels sharded over devices)")
-    pbr = [p for p in PBR_PARAMS if p in args.optimize]
-    if pbr:
-        raise _not_ported(f"--optimize {' '.join(pbr)} (shading='pbr')")
-    if "textures" in args.optimize:
-        raise _not_ported("--optimize textures (float texture stacks)")
-    soft = args.soft_edges
-    if soft is None:
-        soft = 0.05 if "vertices" in args.optimize else 0.0
-    if soft > 0.0:
-        raise _not_ported("soft edges (--soft-edges > 0, the default with "
-                          "--optimize vertices; pass --soft-edges 0)")
     if not args.cpu and not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False (pass --cpu "
                            "to run on the CPU)")
@@ -232,12 +223,20 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     w, h = (int(x) for x in args.size.split("x"))
     scene = load_scene(args.scene).to(device)
+    if "textures" in args.optimize:
+        scene = decode_textures(scene)
     cam = make_camera(
         position=tuple(float(x) for x in args.camera_pos.split(",")),
         look_at=tuple(float(x) for x in args.look_at.split(",")),
         vfov_deg=args.vfov, device=device)
+    soft = args.soft_edges
+    if soft is None:
+        soft = 0.05 if "vertices" in args.optimize else 0.0
+    pbr = any(p in args.optimize for p in PBR_PARAMS)
     settings = RenderSettings(bounces=args.bounces, enable_tonemap=False,
-                              enable_gamma=False, nee_cosine=args.nee_cosine)
+                              enable_gamma=False, nee_cosine=args.nee_cosine,
+                              soft_edges=float(soft),
+                              shading="pbr" if pbr else "reference")
     lights = LightParams.from_settings(settings, device=device)
 
     # --- target ---

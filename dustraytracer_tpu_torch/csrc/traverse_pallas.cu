@@ -159,6 +159,13 @@ extern "C" int drt_traverse_pallas(const float* origin, const float* direction,
   return (int)cudaGetLastError();
 }
 
+// Resident blocks per SM (the occupancy calculator's figure for kBlock
+// threads and no shared memory) into *out; returns a cudaError_t.
+extern "C" int drt_traverse_pallas_occupancy(int* out) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, traverse_pallas_kernel, kBlock, 0);
+}
+
 extern "C" const char* drt_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -109,10 +109,26 @@ def load_kernel():
         lib.drt_traverse_pallas.argtypes = [p, p, p, i, p, i, p, i, i, p, p,
                                             p]
         lib.drt_traverse_pallas.restype = ctypes.c_int
+        lib.drt_traverse_pallas_occupancy.argtypes = [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.drt_traverse_pallas_occupancy.restype = ctypes.c_int
         lib.drt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.drt_cuda_error_string.restype = ctypes.c_char_p
         lib._drt_bound = True
     return lib
+
+
+def occupancy() -> int:
+    """Resident blocks per SM of the kernel on the current card (the CUDA
+    occupancy calculator's figure)."""
+    lib = load_kernel()
+    blocks = ctypes.c_int(0)
+    err = lib.drt_traverse_pallas_occupancy(ctypes.byref(blocks))
+    if err != 0:
+        msg = lib.drt_cuda_error_string(err).decode()
+        raise RuntimeError(f"traverse_pallas occupancy query failed: {msg} "
+                           f"(cudaError {err})")
+    return blocks.value
 
 
 def device_base_nodes(cb: ClusterBvh) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""The differentiable path integrator over ray batches, NORMAL mode
-(port of render/integrator.py).
+"""The differentiable path integrator over ray batches (port of
+render/integrator.py).
 
-One sample for N pixels is a wavefront: camera rays, then `bounces`
-path segments, each of which traces closest hits, adds sky on a miss,
-multiplies the throughput by the (textured) albedo, adds the sun through
-an any-hit shadow ray, and bounces diffusely; finally tonemap and gamma.
+One NORMAL-mode sample for N pixels is a wavefront: camera rays, then
+`bounces` path segments, each of which traces closest hits, adds sky on
+a miss, multiplies the throughput by the (textured) albedo, adds the sun
+through an any-hit shadow ray, and bounces diffusely; finally tonemap
+and gamma. shading="pbr" adds emission, a metal lobe and glass
+(refraction, Fresnel, frosted fuzz); soft_edges > 0 makes silhouettes
+differentiable with one continuation trace per segment. DEBUG mode
+traces camera rays once and returns a debug view (albedo, normal,
+barycentrics, uvs or BVH visit heat).
 Traversal is picked per scene and settings.traversal (`_make_tracers`):
 all-pairs brute force for small scenes, the sweep traversal
 (ops/traverse_sweep.py: the CUDA kernel on a card, its twin on the CPU)
@@ -19,8 +24,12 @@ ids (shade_fetch="gather") or from the kernel's in-kernel fetch
 shade_hits (_KernelShade). Gradients reach materials, lights, camera
 and vertex positions.
 
-Options the port does not run yet raise NotImplementedError: the debug
-views, shading="pbr" and soft_edges.
+Every discrete choice the shading makes from a continuous parameter (a
+soft edge's pass-through, the metal lobe, glass against diffuse, reflect
+against refract) multiplies the throughput by w / w.detach(): 1 in
+value, the derivative of the choice's probability in the gradient. The
+clips on those weights go through `_clip`, whose gradient at a bound is
+JAX's, half on each side.
 """
 
 from __future__ import annotations
@@ -42,31 +51,41 @@ from dustraytracer_tpu_torch.ops.traverse_cluster import traverse_cluster
 from dustraytracer_tpu_torch.ops.traverse_sweep import traverse_cluster_sweep
 from dustraytracer_tpu_torch.render.texture import sample_texture
 from dustraytracer_tpu_torch.scene.camera import Camera, generate_rays
-from dustraytracer_tpu_torch.scene.settings import (LightParams, RenderMode,
+from dustraytracer_tpu_torch.scene.settings import (DebugMode, LightParams,
+                                                    RenderMode,
                                                     RenderSettings)
 
 _PARK = 3.0e37  # origin of dead lanes: their walk ends at the root
 TRAVERSALS = ("auto", "sweep", "cluster", "brute", "gather")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} not yet ported, see ROADMAP.md")
+SHADINGS = ("reference", "pbr")
 
 
 def _check_settings(settings: RenderSettings):
-    if settings.render_mode == RenderMode.DEBUG:
-        raise _not_ported("render_mode=DEBUG (debug views)")
-    if settings.shading != "reference":
-        raise _not_ported(f"shading={settings.shading!r}")
-    if settings.soft_edges > 0.0:
-        raise _not_ported("soft_edges")
     if settings.traversal not in TRAVERSALS:
         raise ValueError(f"settings.traversal={settings.traversal!r} is "
                          f"none of {TRAVERSALS}")
+    if settings.shading not in SHADINGS:
+        raise ValueError(f"settings.shading={settings.shading!r} is none "
+                         f"of {SHADINGS}")
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip: maximum, then minimum. At a bound the gradient is split
+    half and half, where torch.clamp passes all of it; a weight exactly
+    at a bound (1 - metallic with metallic 0) is common."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def _bary_min(bary: torch.Tensor) -> torch.Tensor:
+    """min over the last axis as a pairwise minimum chain, as the JAX
+    package takes it: its gradient picks one side per pair (half each on
+    a tie) rather than dividing by the count of equal entries."""
+    return torch.minimum(torch.minimum(bary[..., 0], bary[..., 1]),
+                         bary[..., 2])
 
 
 def _resolve_fetch(scene, settings: RenderSettings) -> str:
@@ -429,18 +448,123 @@ def _make_tracers(scene, settings: RenderSettings):
     return _no_grad_in(closest), _no_grad_in(anyhit)
 
 
+def _ratio(w: torch.Tensor, lo: float, apply: torch.Tensor) -> torch.Tensor:
+    """w / w.detach() on `apply` lanes, 1 elsewhere, with w clipped to
+    [lo, 1]: 1 in value, d log w in the gradient."""
+    w = _clip(w, lo, 1.0)
+    return torch.where(apply, w / w.detach(), 1.0)
+
+
+def _soft_edges(trace_closest, scene, lights, settings, origin, direction,
+                o_live, res, alive, hit_idx, u_edge, throughput, light):
+    """The edge of each live hit made differentiable. A continuation is
+    traced from a hair past the hit. A lane keeps its hit with
+    probability sigma = 1 - exp(-b_min / soft_edges), b_min its smallest
+    barycentric, or passes through to what the continuation hit, and the
+    recorded choice is reweighted by w / w.detach(); where the
+    continuation escaped, the lane keeps its hit and blends toward the
+    sky deterministically (light += (1 - sigma) sky, throughput *=
+    sigma). Returns (hit_idx, throughput, light)."""
+    hit0 = alive & (hit_idx >= 0)
+    sh_e = shade_hits(scene, origin, direction, hit_idx)
+    # double where: the dead lanes' barycentrics must not reach a gradient
+    b_min = torch.where(hit0, _bary_min(sh_e["bary"]), 0.5)
+    sigma = 1.0 - torch.exp(-_clip(b_min, 0.0, 1.0) / settings.soft_edges)
+    adv = torch.where(hit0, res["t"] * (1.0 + 1e-4) + 1e-4, 0.0)
+    # lanes with no hit need no continuation: they park
+    o2 = torch.where(hit0[:, None], o_live + direction.detach()
+                     * adv[:, None], _PARK)
+    res2 = trace_closest(o2, direction)
+    cont_miss = hit0 & (res2["hit_idx"] < 0)
+    pass_th = hit0 & ~cont_miss & (u_edge >= sigma.detach())
+    light = light + torch.where(
+        cont_miss[:, None], throughput * (1.0 - sigma)[:, None]
+        * _sky(direction, lights) * lights.sky_intensity, 0.0)
+    det_scale = torch.where(cont_miss, sigma, 1.0)
+    ratio = _ratio(torch.where(pass_th, 1.0 - sigma, sigma), 1e-4,
+                   hit0 & ~cont_miss)
+    return (torch.where(pass_th, res2["hit_idx"], hit_idx),
+            throughput * (ratio * det_scale)[:, None], light)
+
+
+def _pbr_bounce(sh, matd, direction, ball, bounce_dir, new_origin,
+                throughput, live_hit, rng):
+    """The metal lobe and glass, after the diffuse bounce. A lane turns
+    metal with P = metallic (mirror direction + roughness * ball); a
+    lane that did not transmits with P = transmission, by Snell or by a
+    mirror reflection on total internal reflection or a Schlick-Fresnel
+    coin, fuzzed by roughness * ball, and a transmitted ray starts just
+    behind the surface. Returns (bounce_dir, new_origin, throughput,
+    rng)."""
+    rng, u_lobe = random_float(rng)
+    metallic = matd["metallic"]
+    roughness = matd["roughness"][:, None]
+    nrm = sh["normal"]  # viewer-facing, so cos_in >= 0
+    d_n = direction / _norm(direction)
+    refl = d_n - 2.0 * (d_n * nrm).sum(dim=-1, keepdim=True) * nrm
+    is_metal = u_lobe < metallic.detach()
+    bounce_dir = torch.where(is_metal[:, None], refl + roughness * ball,
+                             bounce_dir)
+    throughput = throughput * _ratio(
+        torch.where(is_metal, metallic, 1.0 - metallic), 1e-3,
+        live_hit)[:, None]
+
+    rng, u_glass = random_float(rng)
+    rng, u_fresnel = random_float(rng)
+    transm = matd["transmission"]
+    ior = torch.maximum(matd["ior"], matd["ior"].new_tensor(1.0 + 1e-4))
+    is_glass = ~is_metal & (u_glass < transm.detach())
+    eta = torch.where(sh["front_face"], 1.0 / ior, ior)
+    cos_in = _clip(-(d_n * nrm).sum(dim=-1), 0.0, 1.0)
+    k = 1.0 - eta * eta * (1.0 - cos_in * cos_in)
+    tir = k < 0.0
+    # double where: sqrt'(0) = inf would turn the TIR lanes' zero
+    # cotangent into NaN in d/d(ior)
+    k_safe = torch.where(tir, 1.0, torch.maximum(k, k.new_tensor(0.0)))
+    refr = (eta[:, None] * (d_n + cos_in[:, None] * nrm)
+            - torch.sqrt(k_safe)[:, None] * nrm)
+    r0 = (1.0 - eta) / (1.0 + eta)
+    r0 = r0 * r0
+    # (1 - cos)^5 multiplied out as XLA's integer_pow does it
+    c = 1.0 - cos_in
+    c2 = c * c
+    fres = _clip(r0 + (1.0 - r0) * (c * (c2 * c2)), 0.0, 1.0)
+    reflect = tir | (u_fresnel < fres.detach())
+    glass_dir = torch.where(reflect[:, None], refl, refr) + roughness * ball
+    bounce_dir = torch.where(is_glass[:, None], glass_dir, bounce_dir)
+    transmitted = is_glass & ~reflect
+    new_origin = torch.where(transmitted[:, None],
+                             sh["world_position"] - nrm * 1e-3, new_origin)
+    # a metal lane never flipped the glass coin: its weight is 1, so
+    # d/d(transmission) stays unbiased when metallic > 0
+    w_g = torch.where(is_glass, transm,
+                      torch.where(is_metal, 1.0, 1.0 - transm))
+    w_f = torch.where(is_glass & ~tir,
+                      torch.where(reflect, fres, 1.0 - fres), 1.0)
+    throughput = throughput * _ratio(w_g * w_f, 1e-3, live_hit)[:, None]
+    return bounce_dir, new_origin, throughput, rng
+
+
 def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
              carry, bounce_idx: int):
-    """One path segment for all rays."""
+    """One path segment for all rays. The RNG stream is drawn in the JAX
+    package's order: u_edge, sun jitter, u_rr, ball, the cosine sample,
+    u_lobe, u_glass, u_fresnel."""
     origin, direction, throughput, light, alive, rng = carry
     sun_pos = lights.sun_position()
     sun_col = lights.sun_color * lights.sun_intensity
     trace_closest, trace_anyhit = tracers
+    pbr = settings.shading == "pbr"
 
     # dead lanes park far away (traversal only: shading sees `origin`)
     o_live = torch.where(alive[:, None], origin.detach(), _PARK)
     res = trace_closest(o_live, direction)
     hit_idx = torch.where(alive, res["hit_idx"], -1)
+    if settings.soft_edges > 0.0:
+        rng, u_edge = random_float(rng)
+        hit_idx, throughput, light = _soft_edges(
+            trace_closest, scene, lights, settings, origin, direction,
+            o_live, res, alive, hit_idx, u_edge, throughput, light)
     miss = hit_idx < 0
     live_hit = alive & ~miss
 
@@ -455,6 +579,9 @@ def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
         sh = shade_hits(scene, origin, direction, hit_idx,
                         smooth=settings.smooth_shading)
     matd = _fetch_material(scene, sh["material"])
+    if pbr:  # emission, before the albedo multiply
+        light = light + torch.where(live_hit[:, None],
+                                    throughput * matd["emissive"], 0.0)
     alb = _albedo(scene, matd, sh["uv"],
                   bilinear=settings.tex_filter == "bilinear")
     throughput = torch.where(live_hit[:, None], throughput * alb, throughput)
@@ -467,6 +594,11 @@ def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
         nee_o = torch.where(live_hit[:, None], new_origin.detach(), _PARK)
         occluded = trace_anyhit(nee_o, shadow_dir)
         contrib = sun_col[None, :] * throughput
+        if pbr:
+            # only the (1 - transmission) reflected share of a dielectric
+            # sees the sun; the shadow ray still treats glass as opaque
+            contrib = contrib * (1.0 - (1.0 - matd["metallic"])
+                                 * matd["transmission"])[:, None]
         if settings.nee_cosine:
             d_n = shadow_dir / _norm(shadow_dir)
             contrib = contrib * torch.clamp_min(
@@ -495,8 +627,47 @@ def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
         rng, sph = random_unit_vec3(rng)
         bounce_dir = sh["normal"] + sph
         bounce_dir = bounce_dir / torch.clamp_min(_norm(bounce_dir), 1e-8)
+    if pbr:
+        bounce_dir, new_origin, throughput, rng = _pbr_bounce(
+            sh, matd, direction, ball, bounce_dir, new_origin, throughput,
+            live_hit, rng)
 
     return new_origin, bounce_dir, throughput, light, alive, rng
+
+
+def _debug_view(scene, lights: LightParams, settings: RenderSettings,
+                trace_closest, origin, direction) -> torch.Tensor:
+    """One closest trace of the camera rays and the debug head of
+    settings.debug_mode: ALBEDO (albedo on a hit, sky on a miss), NORMAL,
+    BARYCENTRIC, UVS (u, v, 0), or BVH / WORLD_BVH (visits * 0.05 over a
+    base of (0, 0.1, 0.1) on a hit); zero on a miss but for ALBEDO and
+    the heat."""
+    res = trace_closest(origin, direction)
+    hit_idx = res["hit_idx"]
+    live_hit = (hit_idx >= 0)[:, None]
+    if settings.shade_fetch == "kernel":
+        sh = _shade_from_kernel(scene, origin, direction, hit_idx, res)
+    else:
+        sh = shade_hits(scene, origin, direction, hit_idx,
+                        smooth=settings.smooth_shading)
+    dm = settings.debug_mode
+    if dm == DebugMode.ALBEDO:
+        alb = _albedo(scene, _fetch_material(scene, sh["material"]),
+                      sh["uv"], bilinear=settings.tex_filter == "bilinear")
+        sky = _sky(direction, lights) * lights.sky_intensity
+        return torch.where(live_hit, alb, sky)
+    if dm in (DebugMode.BVH, DebugMode.WORLD_BVH):
+        heat = res["visits"].to(torch.float32)[:, None] * 0.05
+        base = torch.tensor([0.0, 0.1, 0.1], device=origin.device)
+        return torch.where(live_hit, base, 0.0) + heat
+    if dm == DebugMode.NORMAL:
+        view = sh["normal"]
+    elif dm == DebugMode.BARYCENTRIC:
+        view = sh["bary"]
+    else:  # UVS
+        view = torch.cat([sh["uv"], torch.zeros_like(sh["uv"][:, :1])],
+                         dim=-1)
+    return torch.where(live_hit, view, 0.0)
 
 
 def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx: int,
@@ -505,7 +676,8 @@ def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx: int,
     """Render one sample for a flat batch of pixel ids -> (N, 3) colour,
     on the scene's device; differentiable in the scene's float tables,
     the camera and the lights (wrap in torch.inference_mode() to render
-    without a graph)."""
+    without a graph). Tonemap and gamma apply in NORMAL mode and to the
+    ALBEDO debug view only."""
     _check_settings(settings)
     # resolve the fetch once, so the tracers and every segment agree
     settings = settings.replace(shade_fetch=_resolve_fetch(scene, settings))
@@ -514,14 +686,23 @@ def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx: int,
     rng = seed_pixels(pixel_ids, frame_idx)
     rng, origin, direction = generate_rays(camera, width, height, rng,
                                            pixel_ids=pixel_ids)
-    carry = (origin, direction,
-             torch.ones((n, 3), dtype=torch.float32, device=dev),
-             torch.zeros((n, 3), dtype=torch.float32, device=dev),
-             torch.ones((n,), dtype=torch.bool, device=dev), rng)
     tracers = _make_tracers(scene, settings)
-    for bounce_idx in range(settings.bounces):
-        carry = _segment(scene, lights, settings, tracers, carry, bounce_idx)
-    color = carry[3]
+    if settings.render_mode == RenderMode.DEBUG:
+        color = _debug_view(scene, lights, settings, tracers[0], origin,
+                            direction)
+        post = settings.debug_mode == DebugMode.ALBEDO
+    else:
+        carry = (origin, direction,
+                 torch.ones((n, 3), dtype=torch.float32, device=dev),
+                 torch.zeros((n, 3), dtype=torch.float32, device=dev),
+                 torch.ones((n,), dtype=torch.bool, device=dev), rng)
+        for bounce_idx in range(settings.bounces):
+            carry = _segment(scene, lights, settings, tracers, carry,
+                             bounce_idx)
+        color = carry[3]
+        post = True
+    if not post:
+        return color
     if settings.enable_tonemap:
         color = uncharted2_filmic(color, camera.exposure)
     if settings.enable_gamma:

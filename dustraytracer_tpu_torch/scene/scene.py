@@ -114,6 +114,22 @@ class Scene:
     def device(self) -> torch.device:
         return self.tri_pos.device
 
+    @property
+    def stats(self) -> dict:
+        """Triangle, object, BVH, material and texture counts and the
+        per-mesh triangle table (the CLI's `stats`)."""
+        return {
+            "triangles": self.n_tris,
+            "objects": len(self.mesh_names),
+            "bvh_nodes": self.n_nodes,
+            "bvh_depth": self.bvh_depth,
+            "materials": self.n_materials,
+            "textures": self.n_textures,
+            "meshes": [{"name": nm, "triangles": ct}
+                       for nm, ct in zip(self.mesh_names,
+                                         self.mesh_tri_counts)],
+        }
+
 
 def _face_normals(pos: np.ndarray, nrm: np.ndarray) -> np.ndarray:
     """cross(e1, e2) normalized, flipped to agree with the mean vertex

@@ -1,10 +1,9 @@
 """Render settings (port of scene/settings.py).
 
 `RenderSettings` is the same frozen dataclass with the same field names
-and defaults, so one settings object reads the same in both packages.
-The port renders a subset of it; `render/integrator.py` raises
-NotImplementedError for the options it does not run yet. `LightParams`
-holds the lighting scalars as float32 tensors on one device.
+and defaults, so one settings object reads the same in both packages,
+and the port renders every option of it. `LightParams` holds the
+lighting scalars as float32 tensors on one device.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ scene, and the measurements of it that PERF.md quotes, on one CUDA card.
 
 The scene is a displaced lat-long sphere of LONxLAT segments over a
 textured ground (`sphere_doc`; 128x64 is chip_smoke.py's 16,130-triangle
-scene). Each section prints one JSON line; --out gets all of them:
+scene; `sphere_doc(pbr=True)` and `glass_panes_doc` are its PBR scenes).
+Each section prints one JSON line; --out gets all of them:
 
   fetch    per sphere size: what shade_fetch="auto" picks there, and the
            512x512, 4-bounce fwd+bwd step with the kernel fetch and with
@@ -59,14 +60,33 @@ SPHERES = ((64, 32), (96, 48), SMOKE_SPHERE, (192, 96), (256, 128))
 REPS = 9
 
 
+def quad_prim(corners, normal, material: int) -> GltfPrimitive:
+    """Two triangles (0, 1, 2) and (0, 2, 3) over four corners, with uvs
+    (0, 0), (1, 0), (1, 1), (0, 1) and one normal."""
+    c = np.asarray(corners, np.float32)
+    cuv = np.float32([[0, 0], [1, 0], [1, 1], [0, 1]])
+    idx = [[0, 1, 2], [0, 2, 3]]
+    return GltfPrimitive(
+        positions=c[idx], uvs=cuv[idx],
+        normals=np.broadcast_to(np.float32(normal), (2, 3, 3)).copy(),
+        material=material)
+
+
 def sphere_doc(n_lon: int = 128, n_lat: int = 64, seed: int = 0,
-               cutout: bool = False):
+               cutout: bool = False, pbr: bool = False):
     """A displaced lat-long sphere (2·n_lon·(n_lat - 1) triangles: 16,128
     at 128x64) on a checker-textured ground quad, two materials, one
     256x256 u8 image; all from `seed`. With `cutout`, a 2-triangle quad
     with a checker alpha texture (texels of alpha 0 and 255, 8x8 cells
     of 64x64) stands between the bench pose's camera and the sphere: a
-    third material and a second image."""
+    third material and a second image. With `pbr` (not with `cutout`)
+    the sphere is metallic 0.6, roughness 0.3, a glass pane (transmission
+    0.85, ior 1.5, roughness 0.05) stands at the cutout quad's place and
+    an emissive panel (3.5, 0.4, 0.4) with a black albedo behind the
+    sphere: 16,134 triangles at 128x64."""
+    if cutout and pbr:
+        raise ValueError("sphere_doc: cutout and pbr put a quad in the "
+                         "same place")
     rng = np.random.default_rng(seed)
     lat = np.linspace(0.0, np.pi, n_lat + 1)[:, None]
     lon = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)[None, :]
@@ -114,20 +134,28 @@ def sphere_doc(n_lon: int = 128, n_lat: int = 64, seed: int = 0,
     img[..., 3] = 255
 
     mats = [GltfMaterial(name="sphere",
-                         base_color=np.float32([0.5, 0.2, 0.15])),
+                         base_color=np.float32([0.5, 0.2, 0.15]),
+                         metallic=0.6 if pbr else 0.0,
+                         roughness=0.3 if pbr else 1.0),
             GltfMaterial(name="ground", base_color=np.float32([1, 1, 1]),
                          base_color_texture=0)]
     meshes = [("sphere", [sphere]), ("ground", [ground])]
     images = [img]
+    pane = [[-0.8, 0.3, 2.2], [0.8, 0.3, 2.2], [0.8, 1.9, 2.2],
+            [-0.8, 1.9, 2.2]]
+    if pbr:
+        meshes.append(("pane", [quad_prim(pane, [0, 0, 1], 2)]))
+        meshes.append(("panel", [quad_prim(
+            [[-2.0, 0.0, -2.5], [2.0, 0.0, -2.5], [2.0, 3.0, -2.5],
+             [-2.0, 3.0, -2.5]], [0, 0, 1], 3)]))
+        mats.append(GltfMaterial(
+            name="glass", base_color=np.float32([0.95, 0.98, 1.0]),
+            roughness=0.05, transmission=0.85, ior=1.5))
+        mats.append(GltfMaterial(
+            name="panel", base_color=np.zeros(3, np.float32),
+            emissive=np.float32([3.5, 0.4, 0.4])))
     if cutout:
-        c = np.float32([[-0.8, 0.3, 2.2], [0.8, 0.3, 2.2], [0.8, 1.9, 2.2],
-                        [-0.8, 1.9, 2.2]])
-        cuv = np.float32([[0, 0], [1, 0], [1, 1], [0, 1]])
-        quad = [[0, 1, 2], [0, 2, 3]]
-        meshes.append(("cutout", [GltfPrimitive(
-            positions=c[quad], uvs=cuv[quad],
-            normals=np.broadcast_to(np.float32([0, 0, 1]), (2, 3, 3)).copy(),
-            material=2)]))
+        meshes.append(("cutout", [quad_prim(pane, [0, 0, 1], 2)]))
         yy, xx = np.mgrid[0:64, 0:64]
         cells = (yy // 8 + xx // 8) % 2
         cut = np.empty((64, 64, 4), np.uint8)
@@ -139,6 +167,50 @@ def sphere_doc(n_lon: int = 128, n_lat: int = 64, seed: int = 0,
                                  base_color_texture=1))
     return GltfDocument(meshes=meshes, materials=mats, images=images,
                         cameras=[])
+
+
+def _square(center, size: float, axis: int, material: int) -> GltfPrimitive:
+    """tests/util_scenes.py's make_quad for axis 1 (an XZ square facing
+    +y) and 2 (an XY square facing +z)."""
+    h = size / 2.0
+    if axis == 2:
+        corners = np.array([[-h, -h, 0], [h, -h, 0], [h, h, 0], [-h, h, 0]])
+    else:
+        corners = np.array([[-h, 0, -h], [h, 0, -h], [h, 0, h], [-h, 0, h]])
+    return quad_prim(corners + np.asarray(center, np.float32),
+                     np.eye(3)[axis], material)
+
+
+def glass_panes_doc():
+    """tests/util_scenes.py's make_glass_panes_scene as a document of the
+    port's glTF types (the card's machine has no JAX): a pane of glass
+    (transmission 0.85, ior 1.5), tilted 20 degrees about x, before a red
+    emissive wall over a grey ground. The scene of the committed golden
+    tests/goldens/glass_panes_exact.npz."""
+    pane = _square((0, 1.2, -0.8), 2.2, axis=2, material=0)
+    pos = pane.positions.copy()
+    c, s = np.cos(np.radians(20)), np.sin(np.radians(20))
+    y = pos[..., 1] - 1.2
+    z = pos[..., 2] + 0.8
+    pos[..., 1] = 1.2 + c * y - s * z
+    pos[..., 2] = -0.8 + s * y + c * z
+    pane = GltfPrimitive(positions=pos, normals=pane.normals, uvs=pane.uvs,
+                         material=0)
+    return GltfDocument(
+        meshes=[("pane", [pane]),
+                ("wall", [_square((0, 1.5, -3), 6, axis=2, material=1)]),
+                ("ground", [_square((0, 0, 0), 12, axis=1, material=2)])],
+        materials=[
+            GltfMaterial(name="glass",
+                         base_color=np.float32([0.95, 0.98, 1.0]),
+                         roughness=0.0, transmission=0.85, ior=1.5),
+            GltfMaterial(name="wall", base_color=np.zeros(3, np.float32),
+                         emissive=np.float32([3.5, 0.4, 0.4]),
+                         roughness=1.0),
+            GltfMaterial(name="ground",
+                         base_color=np.float32([0.55, 0.55, 0.55]),
+                         roughness=1.0)],
+        images=[], cameras=[])
 
 
 def grad_step(scene, camera, lights, settings, width: int, height: int, *,

@@ -4,7 +4,6 @@ in-walk test of the gather walk) on the synthetic sphere with a
 checker-alpha quad, the alpha_rounds bound, the re-trace against the
 gather walk ray by ray, and the render CLI's --alpha-test flag."""
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -15,7 +14,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import dustraytracer_tpu.scene.gltf as jgltf
 from dustraytracer_tpu.render.integrator import render_sample as j_render
 from dustraytracer_tpu.scene.camera import make_camera as j_camera
 from dustraytracer_tpu.scene.scene import build_scene as j_build
@@ -32,6 +30,7 @@ from dustraytracer_tpu_torch.scene.settings import (LightParams,
                                                     RenderSettings)
 from dustraytracer_tpu_torch.tools.grad_bench import (POSE, SMALL_SPHERE,
                                                       sphere_doc)
+from tests.util_torch import jax_doc
 
 ROOT = Path(__file__).resolve().parent.parent
 W, H = 48, 32
@@ -40,22 +39,9 @@ PIX_FRAC = 0.999
 MIN_PSNR = 50.0
 
 
-def _jax_doc(doc):
-    """The port's GltfDocument as the JAX package's (same fields)."""
-    def conv(obj, cls):
-        return cls(**{f.name: getattr(obj, f.name)
-                      for f in dataclasses.fields(obj)})
-
-    return jgltf.GltfDocument(
-        meshes=[(name, [conv(p, jgltf.GltfPrimitive) for p in prims])
-                for name, prims in doc.meshes],
-        materials=[conv(m, jgltf.GltfMaterial) for m in doc.materials],
-        images=list(doc.images), cameras=list(doc.cameras))
-
-
 @pytest.fixture(scope="module")
 def scenes():
-    js = j_build(_jax_doc(sphere_doc(*SMALL_SPHERE, cutout=True)),
+    js = j_build(jax_doc(sphere_doc(*SMALL_SPHERE, cutout=True)),
                  use_native=False)
     return js, interop.scene_from_numpy(interop.scene_to_numpy(js))
 

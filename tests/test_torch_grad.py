@@ -4,8 +4,6 @@ position and the vertices, with the kernel fetch (the traversal twin's
 emit mode against the Pallas kernel in interpret mode) and the gather
 fetch."""
 
-import dataclasses
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -14,7 +12,6 @@ import torch
 
 from dustraytracer_tpu.render.integrator import render_pixels as j_render
 from dustraytracer_tpu.scene.camera import make_camera as j_camera
-from dustraytracer_tpu.scene.gltf import GltfMaterial, GltfPrimitive
 from dustraytracer_tpu.scene.scene import build_scene as j_build
 from dustraytracer_tpu.scene.settings import LightParams as JLights
 from dustraytracer_tpu.scene.settings import RenderSettings as JSettings
@@ -23,7 +20,7 @@ from dustraytracer_tpu_torch.render.integrator import render_pixels
 from dustraytracer_tpu_torch.scene.camera import make_camera
 from dustraytracer_tpu_torch.scene.settings import (LightParams,
                                                     RenderSettings)
-from tests.util_scenes import make_random_tri_doc
+from tests.util_torch import assert_grad_close, two_material_doc
 
 W = H = 24
 BOUNCES = 2
@@ -33,31 +30,6 @@ LIGHT_KEYS = ("sun_azimuth", "sun_elevation", "sun_color", "sun_intensity",
               "sky_color", "sky_intensity")
 PARAMS = ("mat_albedo", "mat_emissive", *LIGHT_KEYS, "position", "tri_pos")
 LOSS_RTOL = 1e-5
-
-
-def two_material_doc(n_tris=400, seed=4):
-    """A random soup split in two: a flat-albedo half and a half with a
-    bilinear-sampled 8x8 texture, so the image is continuous in the
-    camera position and still depends on mat_albedo."""
-    doc = make_random_tri_doc(n_tris, seed=seed)
-    prim = doc.meshes[0][1][0]
-    half = n_tris // 2
-
-    def part(sl, mat):
-        return GltfPrimitive(positions=prim.positions[sl],
-                             normals=prim.normals[sl], uvs=prim.uvs[sl],
-                             material=mat)
-
-    tex = np.random.default_rng(0).integers(0, 255, (8, 8, 4),
-                                            dtype=np.uint8)
-    tex[..., 3] = 255
-    return dataclasses.replace(
-        doc, meshes=[("flat", [part(slice(0, half), 0)]),
-                     ("textured", [part(slice(half, None), 1)])],
-        materials=[GltfMaterial(name="flat", base_color=np.float32(
-            [0.7, 0.5, 0.3])), GltfMaterial(name="tex",
-                                            base_color_texture=0)],
-        images=[tex])
 
 
 def _settings(cls, fetch):
@@ -138,13 +110,6 @@ def grads(scenes):
                                port_value_and_grad(tsc, fetch))
         return _RESULTS[fetch]
     return get
-
-
-def assert_grad_close(g_port, g_jax, name=""):
-    # tests/test_sweep.py:277's bound
-    scale = float(np.abs(g_jax).max())
-    np.testing.assert_allclose(g_port, g_jax, rtol=2e-3, atol=2e-4 * scale,
-                               err_msg=name)
 
 
 @pytest.mark.parametrize("fetch", ["kernel", "gather"])

@@ -2,7 +2,8 @@
 (apps/optimize.py, utils/checkpoint.py, parallel/shard.py): Adam steps
 against optax.adam steps of the JAX package from the same initial
 params, train-state checkpoints read across the two packages, the CLI's
-self-test on the CPU, and the options that are not ported yet."""
+self-test on the CPU with every --optimize choice, and the option that
+is not ported yet (--devices)."""
 
 import functools
 import json
@@ -281,16 +282,41 @@ def test_cli_resume(glb, tmp_path, capsys):
     assert [h["step"] for h in json.loads(cap.out)["history"]] == [4]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--devices", "2"],
-    ["--optimize", "emissive"],
-    ["--optimize", "albedo", "roughness"],
-    ["--optimize", "textures"],
-    ["--optimize", "vertices"],  # the default soft edges
-])
+@pytest.mark.parametrize("flag", [["--devices", "2"]])
 def test_cli_not_ported_options_raise(glb, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         optimize.main(_cli(glb, tmp_path / "x", *flag))
+
+
+# options that were refused before PBR shading, float textures and soft
+# edges were ported: each optimizes on the CPU and lowers the loss (the
+# PBR parameters change the image only in shading="pbr", which they
+# switch on; vertices take the default soft edges 0.05)
+FORMERLY_UNPORTED = {
+    "emissive": ["--optimize", "emissive"],
+    "albedo_roughness": ["--optimize", "albedo", "roughness", "metallic"],
+    "textures": ["--optimize", "textures"],
+    "vertices": ["--optimize", "vertices", "--perturb-vertices", "0.02",
+                 "--bounces", "2", "--lr", "2e-3"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(FORMERLY_UNPORTED))
+def test_cli_formerly_unported_options(tmp_path, capsys, monkeypatch, name):
+    from tests.util_torch import two_material_doc
+
+    textured = interop.scene_from_numpy(interop.scene_to_numpy(
+        j_build(two_material_doc(), use_native=False)))
+    monkeypatch.setattr(optimize, "load_scene", lambda path: textured)
+    out = tmp_path / "run"
+    assert optimize.main(_cli("textured.glb", out, "--steps", "5",
+                              *FORMERLY_UNPORTED[name])) == 0
+    res = json.loads(capsys.readouterr().out)
+    first, last = res["history"][0]["loss"], res["history"][-1]["loss"]
+    assert 0.0 < last < first, (first, last)
+    assert set(res["param_mae"]) == {
+        optimize.PARAM_KEYS[k] for k in FORMERLY_UNPORTED[name][1:]
+        if k in optimize.PARAM_KEYS}
 
 
 def test_cli_cuda_without_card_raises(glb, tmp_path):

@@ -14,6 +14,7 @@ from dustraytracer_tpu.render.integrator import render_sample as j_render
 from dustraytracer_tpu.scene.camera import make_camera as j_camera
 from dustraytracer_tpu.scene.scene import build_scene as j_build
 from dustraytracer_tpu.scene.settings import LightParams as JLights
+from dustraytracer_tpu.scene.settings import RenderMode as JRenderMode
 from dustraytracer_tpu.scene.settings import RenderSettings as JSettings
 from dustraytracer_tpu_torch import interop
 from dustraytracer_tpu_torch.render.film import film_image
@@ -24,15 +25,11 @@ from dustraytracer_tpu_torch.scene.settings import (LightParams, RenderMode,
                                                     RenderSettings)
 from dustraytracer_tpu_torch.utils.image import save_png, to_uint8
 from tests.util_scenes import make_random_tri_doc
+from tests.util_torch import compare_images
 
 W, H = 48, 32
 POSE = dict(position=(0.0, 2.0, 13.0), look_at=(0.0, 0.0, 0.0),
             vfov_deg=50.0)
-# tests/test_reference_parity.py's golden bound: XLA and torch differ by
-# ulps in sin/cos/cbrt, which can flip a grazing hit in a few pixels
-PIX_TOL = 2e-3
-PIX_FRAC = 0.999
-MIN_PSNR = 50.0
 
 
 @pytest.fixture(scope="module")
@@ -46,19 +43,6 @@ def scenes():
     return js, interop.scene_from_numpy(interop.scene_to_numpy(js))
 
 
-def _compare(t_img, j_img):
-    a, b = np.asarray(t_img), np.asarray(j_img)
-    assert a.shape == b.shape
-    diff = np.abs(a - b).max(axis=-1)
-    over = int((diff > PIX_TOL).sum())
-    psnr = 10 * np.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-12))
-    print(f"pixels over {PIX_TOL}: {over} of {diff.size}; "
-          f"max {diff.max():.3g}; PSNR {psnr:.1f} dB")
-    assert (diff <= PIX_TOL).mean() >= PIX_FRAC
-    assert psnr > MIN_PSNR
-    assert np.isfinite(a).all()
-
-
 @pytest.mark.parametrize("frame", [0, 1])
 def test_render_sample_matches_jax(scenes, frame):
     js, ts = scenes
@@ -70,7 +54,7 @@ def test_render_sample_matches_jax(scenes, frame):
     j_img = j_render(js, j_camera(**POSE), JLights.from_settings(jset),
                      jnp.uint32(frame), width=W, height=H, settings=jset)
     assert tuple(t_img.shape) == (H, W, 3)
-    _compare(t_img.numpy(), j_img)
+    compare_images(t_img.numpy(), j_img)
     assert 0.05 < float(t_img.mean()) < 1.2  # lit, not blank
 
 
@@ -83,7 +67,7 @@ def test_render_progressive_matches_jax(scenes):
                            JSettings(bounces=3, max_samples=5),
                            width=W, height=H, spp=3)
     assert t_film.frame == int(j_film.frame) == 3
-    _compare(film_image(t_film).numpy(), j_film_image(j_film))
+    compare_images(film_image(t_film).numpy(), j_film_image(j_film))
     # the max_samples gate: 3 more samples stop at 5
     t_film = render_progressive(ts, make_camera(**POSE),
                                 RenderSettings(bounces=3, max_samples=5),
@@ -123,22 +107,30 @@ def test_render_backend_matches_jax(scenes, name):
                           width=W, height=H, settings=settings)
     j_img = j_render(js, j_camera(**POSE), JLights.from_settings(jset),
                      jnp.uint32(0), width=W, height=H, settings=jset)
-    _compare(t_img.numpy(), j_img)
+    compare_images(t_img.numpy(), j_img)
     assert 0.05 < float(t_img.mean()) < 1.2
 
 
-NOT_PORTED = {
-    "debug": dict(render_mode=RenderMode.DEBUG),
-    "pbr": dict(shading="pbr"),
-    "soft_edges": dict(soft_edges=0.05),
+# the options that were refused before they were ported; each renders
+# as the JAX package does (tests/test_torch_pbr.py, test_torch_debug.py
+# and test_torch_soft_edges.py cover them in depth)
+OPTIONS = {
+    "debug": (dict(render_mode=RenderMode.DEBUG),
+              dict(render_mode=JRenderMode.DEBUG)),
+    "pbr": (dict(shading="pbr"), dict(shading="pbr")),
+    "soft_edges": (dict(soft_edges=0.05), dict(soft_edges=0.05)),
 }
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_not_ported_options_raise(scenes, name):
-    _, ts = scenes
-    settings = RenderSettings(bounces=1, **NOT_PORTED[name])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        render_sample(ts, make_camera(**POSE),
-                      LightParams.from_settings(settings), 0, width=4,
-                      height=4, settings=settings)
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+def test_formerly_unported_option_matches_jax(scenes, name):
+    js, ts = scenes
+    t_kw, j_kw = OPTIONS[name]
+    settings = RenderSettings(bounces=2, **t_kw)
+    jset = JSettings(bounces=2, **j_kw)
+    t_img = render_sample(ts, make_camera(**POSE),
+                          LightParams.from_settings(settings), 0, width=W,
+                          height=H, settings=settings)
+    j_img = j_render(js, j_camera(**POSE), JLights.from_settings(jset),
+                     jnp.uint32(0), width=W, height=H, settings=jset)
+    compare_images(t_img.detach().numpy(), j_img)
