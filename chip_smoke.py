@@ -9,7 +9,8 @@ scene the size of a dense bundled scene, generated from a seed:
   0. card      nvidia-smi name and power limit; fails without CUDA
   1. build     nvcc builds of csrc/traverse_sweep.cu, traverse_pallas.cu
                and add_salt.cu for sm_90a, started together; ptxas lines,
-               and each sweep instance's registers (none may spill)
+               and the registers of each instance of the sweep kernel and
+               of the base-threading kernel (none may spill)
   2. scene     a displaced lat-long sphere (128 x 64 segments) over a
                textured ground (tools/grad_bench.py::sphere_doc), built
                by the port's build_scene; also its 16 x 8 variant (226
@@ -29,16 +30,26 @@ scene the size of a dense bundled scene, generated from a seed:
                of both modes and the twin, the work the rays need
                (utils/roofline.py), the bound and the roofline share;
                resident blocks per SM of each sweep instance
-  3t. ties/K   all three sweep instances against the twin, bit for bit,
-               on a seeded 2,048-triangle soup at K = 8, 16, 32 and 64,
-               with duplicated triangles under new ids so that rays see
-               exact t ties inside one cluster (the lowest id must win)
-               and across two clusters; counts the tied rays (none fails)
+  3t. ties/K   all three sweep instances, and both node-table instances
+               of the base-threading kernel in closest and any-hit mode,
+               against their twins, bit for bit, on a seeded
+               2,048-triangle soup at K = 8, 16, 32 and 64, with
+               duplicated triangles under new ids so that rays see exact
+               t ties inside one cluster (the lowest id must win) and
+               across two clusters; counts the tied rays (none fails)
   3p. pallas   the base-threading kernel (the TPU one-hot kernel's port) on
-               the same waves: hit ids equal and t bit for bit with its
-               twin, visits zero; hit ids equal to the sweep kernel's but
-               for exact t ties (counted); medians of it, its twin and
-               the sweep kernel, and its bound from the same work count
+               the same waves, in both node-table instances (shared
+               memory, which the wrapper picks for this scene, and the
+               __ldg one, forced): hit ids equal and t bit for bit with
+               its twin, visits zero; hit ids equal to the sweep kernel's
+               but for exact t ties (counted); device ms, registers,
+               blocks per SM, shared-memory bytes and grid of each
+               instance, medians of the twin and the sweep kernel, and
+               the bound from the same work count
+  3s. tables   K2 on the sphere re-clustered at K = 16: 2,017 nodes, past
+               the shared-memory table's limit, so the wrapper picks the
+               __ldg instance; primary and shadow waves, bit for bit with
+               the twin, and their device ms
   4. slice     render_progressive at 512x512, 4 bounces, 8 spp; the shade
                fetch resolves to "kernel", so each bounce launches the
                kernel once with emission (closest) and once without
@@ -141,7 +152,8 @@ OPT_STEPS = 30
 OPT_BOUNCES = 2
 BACKEND_SIZE = 96
 TWIN_REPS = 3        # the plain-PyTorch walks take 0.1-0.5 s per wave
-SWEEP_KERNEL = "traverse_sweep_kernel"  # the device kernels' name stem
+SWEEP_KERNEL = "traverse_sweep_kernel"  # the device kernels' name stems
+PALLAS_KERNEL = "traverse_pallas_kernel"
 KERNELS = ("traverse_sweep", "traverse_sweep[emit_attrs]",
            "traverse_sweep[counters]", "traverse_pallas", "add_salt")
 SWEEP_MODES = {"traverse_sweep": "plain",  # K1's rows -> instances
@@ -150,7 +162,11 @@ SWEEP_MODES = {"traverse_sweep": "plain",  # K1's rows -> instances
 # the instances' template arguments in the mangled kernel names
 INSTANCE_OF = {"ILb0ELb0E": "plain", "ILb1ELb0E": "emit_attrs",
                "ILb0ELb1E": "counters"}
+PALLAS_INSTANCE_OF = {"ILb1E": "shared", "ILb0E": "global"}
 TIE_KS = (8, 16, 32, 64)
+# the sphere re-clustered at this K has 2,017 nodes: past K2's
+# shared-memory node table limit
+TABLE_K = 16
 TIE_CALLS = {"plain": {}, "anyhit": {"anyhit": True},  # keyword arguments
              "emit_attrs": {"emit_attrs": True},
              "counters": {"counters": True}}
@@ -233,14 +249,15 @@ def write_glb(path: Path, doc) -> None:
                      + struct.pack("<II", len(blob), 0x004E4942) + blob)
 
 
-def sweep_registers(log: str) -> dict:
-    """Registers and spill bytes of each sweep kernel instance, from the
-    ptxas -v lines of its build log."""
+def instance_registers(log: str, stem: str, instances: dict) -> dict:
+    """Registers and spill bytes of each instance of the kernel `stem`
+    (template arguments -> instance name), from the ptxas -v lines of its
+    build log."""
     regs, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            entry = next((m for key, m in INSTANCE_OF.items()
-                          if SWEEP_KERNEL + key in ln), None)
+            entry = next((m for key, m in instances.items()
+                          if stem + key in ln), None)
         elif entry and "spill stores" in ln:
             words = ln.replace(",", " ").split()
             regs.setdefault(entry, {})["spill_bytes"] = (
@@ -251,15 +268,6 @@ def sweep_registers(log: str) -> dict:
             regs.setdefault(entry, {})["registers"] = int(
                 words[words.index("registers") - 1])
     return regs
-
-
-def used_registers(log: str):
-    """Registers of the first kernel in a build log's ptxas -v lines."""
-    for ln in log.splitlines():
-        if "Used" in ln and "registers" in ln:
-            words = ln.replace(",", " ").split()
-            return int(words[words.index("registers") - 1])
-    return None
 
 
 def tie_soup(k: int, seed: int = 5):
@@ -680,6 +688,10 @@ def main() -> int:
                                                         nbytes, sweep_work)
 
     dev = torch.device("cuda")
+    # K2's node-table instances: the wrapper's pick on the scenes here,
+    # and the __ldg one, forced
+    k2_calls = {"shared": tp.traverse_cluster_pallas,
+                "global": tp.traverse_cluster_pallas_global}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -705,12 +717,19 @@ def main() -> int:
              built=rec["built"], arch=ARCH,
              flags=rec["log"].splitlines()[0] if rec["log"] else "",
              ptxas=ptxas, all_builds_seconds=nvcc_s)
-    sweep_regs = sweep_registers(recs["traverse_sweep"]["log"])
-    check(sorted(sweep_regs) == sorted(SWEEP_MODES.values()),
-          f"ptxas lines for the sweep instances: {sweep_regs}")
-    for inst, reg in sweep_regs.items():
-        check(reg.get("spill_bytes") == 0, f"sweep {inst} spills: {reg}")
-    emit("build", source="csrc/traverse_sweep.cu", instances=sweep_regs)
+    sweep_regs = instance_registers(recs["traverse_sweep"]["log"],
+                                    SWEEP_KERNEL, INSTANCE_OF)
+    pallas_regs = instance_registers(recs["traverse_pallas"]["log"],
+                                     PALLAS_KERNEL, PALLAS_INSTANCE_OF)
+    for src_name, regs, want in (
+            ("traverse_sweep", sweep_regs, SWEEP_MODES.values()),
+            ("traverse_pallas", pallas_regs, tp.NODE_TABLES)):
+        check(sorted(regs) == sorted(want),
+              f"ptxas lines for the {src_name} instances: {regs}")
+        for inst, reg in regs.items():
+            check(reg.get("spill_bytes") == 0,
+                  f"{src_name} {inst} spills: {reg}")
+        emit("build", source=f"csrc/{src_name}.cu", instances=regs)
 
     # 2. scene
     t0 = time.perf_counter()
@@ -860,8 +879,10 @@ def main() -> int:
         emit("kernel_counters", wave=wave, anyhit=ah, **count_res[wave],
              **work[wave])
 
-    # 3t. K1's three instances against the twin at other K and on ties
+    # 3t. K1's three instances and K2's two against their twins at other
+    # K and on ties
     tie_ms = {inst: {} for inst in SWEEP_MODES.values()}
+    k2_tie_ms = {inst: {} for inst in tp.NODE_TABLES}
     tie_total = 0
     for k in TIE_KS:
         pos, inside, across = tie_soup(k)
@@ -906,40 +927,82 @@ def main() -> int:
                 "across_clusters": int(acr.sum())}
         check(min(tied.values()) > 0, f"ties K={k}: tied rays {tied}")
         tie_total += sum(tied.values())
+        # K2 walks the base threading: its own winners of the same ties
+        check(tp.launch_config(tcb, TIE_RAYS)["node_table"] == "shared",
+              f"ties K={k}: the soup's table does not fit shared memory")
+        k2_out = {}
+        for mode, kw in (("closest", {}), ("anyhit", {"anyhit": True})):
+            rt = tp.traverse_cluster_pallas_reference(tcb, to, td, **kw)
+            for inst, call in k2_calls.items():
+                rk = call(tcb, to, td, **kw)
+                torch.cuda.synchronize()
+                for key in rk:
+                    check(torch.equal(rk[key], rt[key]),
+                          f"ties K={k} pallas {inst} {mode}: {key} differs "
+                          f"from the twin in "
+                          f"{int((rk[key] != rt[key]).sum())} entries")
+                if mode == "closest":
+                    k2_tie_ms[inst][str(k)] = device_ms(
+                        lambda: call(tcb, to, td), PALLAS_KERNEL)
+            k2_out[mode] = rt["hit_idx"].cpu().numpy()
+        hit2 = k2_out["closest"]
+        ins2 = np.isin(hit2, inside)
+        high2 = int((~np.isin(hit2[ins2], inside[:, 0])).sum())
+        check(high2 == 0, f"ties K={k}: pallas: {high2} rays tied inside a "
+              "cluster took the higher id")
+        tied2 = {"inside_cluster": int(ins2.sum()),
+                 "across_clusters": int(np.isin(hit2, across).sum())}
+        check(min(tied2.values()) > 0, f"ties K={k}: pallas tied {tied2}")
+        tie_total += sum(tied2.values())
         emit("kernel_ties_and_k", k=k, triangles=nt, clusters=tcb.n_clusters,
              rays=TIE_RAYS, hits=int((hit >= 0).sum()), tied_rays=tied,
              anyhit_hits=int((outs["anyhit"]["hit_idx"] >= 0).sum()),
-             kernel_ms={m: tie_ms[m][str(k)] for m in tie_ms})
+             kernel_ms={m: tie_ms[m][str(k)] for m in tie_ms},
+             pallas_hits=int((hit2 >= 0).sum()), pallas_tied_rays=tied2,
+             pallas_anyhit_hits=int((k2_out["anyhit"] >= 0).sum()),
+             pallas_ms={m: k2_tie_ms[m][str(k)] for m in k2_tie_ms})
     check(tie_total > 0, "no tied ray exercised")
     emit("kernel_ties_and_k", tied_rays_total=tie_total)
 
-    # 3p. K2: its path is traverse_cluster_pallas on each wave
+    # 3p. K2: its path is traverse_cluster_pallas on each wave, which runs
+    # the shared-memory instance on this scene; then the __ldg instance,
+    # forced, on the same waves
+    k2_cfg = {"shared": tp.launch_config(cb, n),
+              "global": tp.launch_config(cb, n, "global")}
+    check(k2_cfg["shared"]["node_table"] == "shared",
+          f"traverse_pallas on {cb.n_nodes} nodes plans {k2_cfg['shared']}")
     reset_launches()
     k2 = {wave: tp.traverse_cluster_pallas(cb, wo, wd, anyhit=ah)
           for wave, (wo, wd, ah) in waves.items()}
     torch.cuda.synchronize()
     launches["kernel_pallas"] = read_launches()
-    k2_occ = tp.occupancy()
-    check(k2_occ > 0, f"traverse_pallas occupancy {k2_occ}")
     check(launches["kernel_pallas"]["traverse_pallas"] == len(waves),
           f"traverse_pallas launched {launches['kernel_pallas']}")
+    k2_occ = tp.occupancy()
+    check(k2_occ > 0 and k2_occ == k2_cfg["global"]["blocks_per_sm"],
+          f"traverse_pallas occupancy {k2_occ}, plan {k2_cfg['global']}")
     base_tables = nbytes(tp.device_base_nodes(cb), tris_t)
     k2_res, k2_err = {}, 0.0
     for wave, (wo, wd, ah) in waves.items():
-        r2, r1 = k2[wave], plain_out[wave]
+        r1 = plain_out[wave]
         rt = tp.traverse_cluster_pallas_reference(cb, wo, wd, anyhit=ah)
+        outs = {"shared": k2[wave],
+                "global": tp.traverse_cluster_pallas_global(cb, wo, wd,
+                                                           anyhit=ah)}
         torch.cuda.synchronize()
-        check(torch.equal(r2["hit_idx"], rt["hit_idx"]),
-              f"pallas {wave}: hit_idx differs from the twin in "
-              f"{int((r2['hit_idx'] != rt['hit_idx']).sum())} rays")
-        check(torch.equal(r2["t"], rt["t"]),
-              f"pallas {wave}: t not bit for bit with the twin")
-        check(not bool(r2["visits"].any()) and not bool(rt["visits"].any()),
-              f"pallas {wave}: visits not all zero")
-        both = (r2["hit_idx"] >= 0) & (rt["hit_idx"] >= 0)
-        if bool(both.any()):
-            k2_err = max(k2_err, float(
-                (r2["t"][both] - rt["t"][both]).abs().max()))
+        for inst, r2 in outs.items():
+            check(torch.equal(r2["hit_idx"], rt["hit_idx"]),
+                  f"pallas {inst} {wave}: hit_idx differs from the twin in "
+                  f"{int((r2['hit_idx'] != rt['hit_idx']).sum())} rays")
+            check(torch.equal(r2["t"], rt["t"]),
+                  f"pallas {inst} {wave}: t not bit for bit with the twin")
+            check(not bool(r2["visits"].any()),
+                  f"pallas {inst} {wave}: visits not all zero")
+            both = (r2["hit_idx"] >= 0) & (rt["hit_idx"] >= 0)
+            if bool(both.any()):
+                k2_err = max(k2_err, float(
+                    (r2["t"][both] - rt["t"][both]).abs().max()))
+        r2 = outs["shared"]
         if ah:  # first hits differ with the walk order; occlusion not
             check(torch.equal(r2["hit_idx"] >= 0, r1["hit_idx"] >= 0),
                   f"pallas {wave}: occlusion differs from the sweep kernel")
@@ -953,11 +1016,12 @@ def main() -> int:
         b_work = sweep_work(counted[wave], cb.k, base_tables,
                             out_bytes=nbytes(*r2.values()))
         bound_s, bound_by = bound_seconds(b_work["ops"], b_work["bytes"])
-        k_ms = device_ms(lambda: tp.traverse_cluster_pallas(cb, wo, wd,
-                                                            anyhit=ah),
-                         "traverse_pallas_kernel")
+        by_inst = {inst: device_ms(lambda: fn(cb, wo, wd, anyhit=ah),
+                                   PALLAS_KERNEL)
+                   for inst, fn in k2_calls.items()}
+        k_ms = by_inst["shared"]
         k2_res[wave] = {
-            "kernel_ms": k_ms,
+            "kernel_ms": k_ms, "kernel_ms_by_instance": by_inst,
             "twin_ms": median_ms(
                 lambda: tp.traverse_cluster_pallas_reference(
                     cb, wo, wd, anyhit=ah), TWIN_REPS),
@@ -968,6 +1032,34 @@ def main() -> int:
         emit("kernel_pallas_vs_twin", wave=wave, rays=n, anyhit=ah,
              hits=int((r2["hit_idx"] >= 0).sum()), max_abs_t_err=k2_err,
              exact_t_ties_vs_sweep=ties, **k2_res[wave])
+    k2_inst = {inst: {**k2_cfg[inst], **pallas_regs[inst], "ms_by_wave": {
+        w: r["kernel_ms_by_instance"][inst] for w, r in k2_res.items()}}
+        for inst in tp.NODE_TABLES}
+    emit("kernel_pallas_vs_twin", cluster_nodes=cb.n_nodes,
+         threads_per_block=128, instances=k2_inst)
+
+    # 3s. K2 past its node-table limit, on the sphere re-clustered at a
+    # smaller K: the wrapper's own pick is the __ldg instance
+    kcb = build_cluster_bvh(scene.tri_pos.cpu().numpy(), k=TABLE_K).to(dev)
+    cfg = tp.launch_config(kcb, n)
+    check(cfg["node_table"] == "global",
+          f"traverse_pallas on {kcb.n_nodes} nodes plans {cfg}")
+    by_wave = {}
+    for wave in ("primary", "shadow_anyhit"):
+        wo, wd, ah = waves[wave]
+        rk = tp.traverse_cluster_pallas(kcb, wo, wd, anyhit=ah)
+        rt = tp.traverse_cluster_pallas_reference(kcb, wo, wd, anyhit=ah)
+        torch.cuda.synchronize()
+        for key in rk:
+            check(torch.equal(rk[key], rt[key]),
+                  f"pallas K={TABLE_K} {wave}: {key} differs from the twin "
+                  f"in {int((rk[key] != rt[key]).sum())} entries")
+        by_wave[wave] = {
+            "hits": int((rk["hit_idx"] >= 0).sum()),
+            "kernel_ms": device_ms(lambda: tp.traverse_cluster_pallas(
+                kcb, wo, wd, anyhit=ah), PALLAS_KERNEL)}
+    emit("kernel_pallas_tables", k=TABLE_K, cluster_nodes=kcb.n_nodes, **cfg,
+         waves=by_wave)
 
     # 4. the slice, through the user entry point
     fetch = _resolve_fetch(scene, settings)
@@ -1263,8 +1355,14 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_res[prim]["kernel_ms"],
          "plain_ms": k2_res[prim]["twin_ms"],
          "bound_ms": k2_res[prim]["bound_ms"],
-         "bound_by": k2_res[prim]["bound_by"], "blocks_per_sm": k2_occ,
-         "registers": used_registers(recs["traverse_pallas"]["log"])},
+         "bound_by": k2_res[prim]["bound_by"],
+         "node_table": k2_cfg["shared"]["node_table"],
+         "blocks_per_sm": k2_cfg["shared"]["blocks_per_sm"],
+         "registers": pallas_regs["shared"]["registers"],
+         "shared_bytes": k2_cfg["shared"]["shared_bytes"],
+         "grid": k2_cfg["shared"]["grid"],
+         "ms_by_wave": {w: r["kernel_ms"] for w, r in k2_res.items()},
+         "instances": k2_inst, "tie_soup_ms_by_k": k2_tie_ms},
         {"name": "add_salt", "source": src + "add_salt.cu",
          "replaces": "tools/repro_cache_hang.py:52",
          "max_abs_err": a_kid["max_abs_err"], "ms": a_kid["ms"],

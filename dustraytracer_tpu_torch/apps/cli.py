@@ -9,7 +9,10 @@ Usage:
   python -m dustraytracer_tpu_torch.apps.cli stats --scene scene.glb
 
 `--device cuda` (the default) needs a CUDA card and raises without one;
-`--device cpu` renders with the traversal's plain PyTorch twin.
+`--device cpu`, or `--cpu` as in the JAX CLI, renders with the
+traversal's plain PyTorch twin (`--cpu` with `--device cuda` is a usage
+error). `stats --cpu` is accepted and changes nothing: ingest runs on
+the host.
 `--checkpoint film.npz` resumes the film from that file if it exists
 and saves it when the render ends. `--devices` (pixels sharded over
 devices) is not ported yet and raises NotImplementedError.
@@ -71,15 +74,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render a debug head instead of the beauty pass")
     r.add_argument("--devices", type=int, default=0,
                    help="shard over N devices (not yet ported)")
-    r.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda runs the CUDA kernels and needs a card")
+    r.add_argument("--device", choices=["cuda", "cpu"],
+                   help="cuda (the default) runs the CUDA kernels and "
+                   "needs a card")
+    r.add_argument("--cpu", action="store_true",
+                   help="render on the CPU: --device cpu")
     r.add_argument("--metrics-out", help="write render metrics JSON here")
     r.add_argument("--checkpoint", help="film checkpoint path (.npz); "
                    "resumes if it exists, saves on completion")
 
     st = sub.add_parser("stats", help="print scene statistics JSON")
     st.add_argument("--scene", required=True)
+    st.add_argument("--cpu", action="store_true",
+                    help="accepted for the JAX CLI's command lines; ingest "
+                    "runs on the host either way")
     return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """build_parser's arguments with render's device resolved: `--cpu` is
+    `--device cpu`, and is a usage error beside `--device cuda`."""
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.command == "render":
+        if args.cpu and args.device == "cuda":
+            p.error("--cpu conflicts with --device cuda")
+        args.device = "cpu" if args.cpu else args.device or "cuda"
+    return args
 
 
 def _not_ported(flag: str):
@@ -206,7 +227,7 @@ def cmd_render(args) -> int:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     if args.command == "stats":
         return cmd_stats(args)
     return cmd_render(args)

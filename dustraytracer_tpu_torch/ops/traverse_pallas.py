@@ -12,6 +12,12 @@ triangle id) and commit it only if it improves t and the id is real;
 any-hit ends a ray at its first commit; at most 2 * n_nodes + 4 steps.
 They return detached {"hit_idx" i32 (-1 = miss), "t" f32 (t_max on a
 miss), "visits" i32 zeros}: the TPU kernel tracks no visits.
+
+The kernel has two instances (`NODE_TABLES`): "shared" stages a node
+table of at most 1,024 nodes in each block's shared memory, "global"
+reads the nodes through the read-only cache. The source's limit picks
+one; `traverse_cluster_pallas_global` forces "global" on any table, and
+`launch_config` reports what a launch runs.
 """
 
 from __future__ import annotations
@@ -29,9 +35,12 @@ from dustraytracer_tpu_torch.ops.traverse_sweep import (BIG, _check_rays,
 _NO_ID = 2 ** 30
 MAX_STEPS_FACTOR = 2  # the TPU kernel's bound: 2 * n_nodes + 4 steps
 
-# kernel launches since import (or since a caller reset them); the twin
-# never counts
+# kernel launches since import (or since a caller reset them), of either
+# instance; the twin never counts
 LAUNCHES = 0
+# the kernel's instances: node table in shared memory, or read through
+# the read-only cache (csrc/traverse_pallas.cu, point 4)
+NODE_TABLES = ("shared", "global")
 
 
 def _max_steps(cb: ClusterBvh) -> int:
@@ -106,29 +115,54 @@ def load_kernel():
     lib = load_library("traverse_pallas")["lib"]
     if not getattr(lib, "_drt_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.drt_traverse_pallas.argtypes = [p, p, p, i, p, i, p, i, i, p, p,
-                                            p]
-        lib.drt_traverse_pallas.restype = ctypes.c_int
+        for fn in (lib.drt_traverse_pallas, lib.drt_traverse_pallas_global):
+            fn.argtypes = [p, p, p, i, p, i, i, p, i, i, p, p, p, p]
+            fn.restype = ctypes.c_int
         lib.drt_traverse_pallas_occupancy.argtypes = [
             ctypes.POINTER(ctypes.c_int)]
         lib.drt_traverse_pallas_occupancy.restype = ctypes.c_int
+        lib.drt_traverse_pallas_launch_config.argtypes = [
+            i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.drt_traverse_pallas_launch_config.restype = ctypes.c_int
         lib.drt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.drt_cuda_error_string.restype = ctypes.c_char_p
         lib._drt_bound = True
     return lib
 
 
-def occupancy() -> int:
-    """Resident blocks per SM of the kernel on the current card (the CUDA
-    occupancy calculator's figure)."""
-    lib = load_kernel()
-    blocks = ctypes.c_int(0)
-    err = lib.drt_traverse_pallas_occupancy(ctypes.byref(blocks))
+def _raise_on(lib, err: int, what: str):
     if err != 0:
         msg = lib.drt_cuda_error_string(err).decode()
-        raise RuntimeError(f"traverse_pallas occupancy query failed: {msg} "
+        raise RuntimeError(f"traverse_pallas {what} failed: {msg} "
                            f"(cudaError {err})")
+
+
+def occupancy() -> int:
+    """Resident blocks per SM of the "global" instance on the current card
+    (the CUDA occupancy calculator's figure)."""
+    lib = load_kernel()
+    blocks = ctypes.c_int(0)
+    _raise_on(lib, lib.drt_traverse_pallas_occupancy(ctypes.byref(blocks)),
+              "occupancy query")
     return blocks.value
+
+
+def launch_config(cb: ClusterBvh, n: int, node_table: str | None = None
+                  ) -> dict:
+    """What a launch of n rays on `cb`'s base threading runs on the
+    current card: {"node_table": "shared" or "global", "blocks_per_sm",
+    "grid", "shared_bytes" (dynamic shared memory per block)}.
+    node_table=None is the source's rule (what traverse_cluster_pallas
+    runs), "global" what traverse_cluster_pallas_global runs."""
+    if node_table not in (None, "global"):
+        raise ValueError(f"node_table must be None or 'global', got "
+                         f"{node_table!r}")
+    lib = load_kernel()
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib, lib.drt_traverse_pallas_launch_config(
+        n, cb.n_nodes, int(node_table == "global"), out), "launch plan")
+    return {"node_table": NODE_TABLES[0] if out[0] else NODE_TABLES[1],
+            "blocks_per_sm": out[1], "grid": out[2], "shared_bytes": out[3]}
 
 
 def device_base_nodes(cb: ClusterBvh) -> torch.Tensor:
@@ -149,7 +183,8 @@ def device_base_nodes(cb: ClusterBvh) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max):
+def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
+            force_global: bool):
     global LAUNCHES
     n = origin.shape[0]
     dev = origin.device
@@ -162,20 +197,36 @@ def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max):
         return out
     nodes = device_base_nodes(cb)
     _, tris = device_tables(cb)
+    # the persistent schedule's batch counter, zero at the launch
+    next_batch = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = load_kernel()
+    entry = (lib.drt_traverse_pallas_global if force_global
+             else lib.drt_traverse_pallas)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.drt_traverse_pallas(
-            origin.data_ptr(), direction.data_ptr(), t0.data_ptr(), n,
-            nodes.data_ptr(), _max_steps(cb), tris.data_ptr(), cb.k,
-            1 if anyhit else 0, out["hit_idx"].data_ptr(),
-            out["t"].data_ptr(), stream)
-    if err != 0:
-        msg = lib.drt_cuda_error_string(err).decode()
-        raise RuntimeError(f"traverse_pallas kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+        err = entry(origin.data_ptr(), direction.data_ptr(), t0.data_ptr(),
+                    n, nodes.data_ptr(), cb.n_nodes, _max_steps(cb),
+                    tris.data_ptr(), cb.k, 1 if anyhit else 0,
+                    out["hit_idx"].data_ptr(), out["t"].data_ptr(),
+                    next_batch.data_ptr(), stream)
+    _raise_on(lib, err, "kernel launch")
     LAUNCHES += 1
     return out
+
+
+def _traverse(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
+              force_global: bool) -> dict:
+    _check_rays(cb, origin, direction)
+    if cb.k < 1:
+        raise ValueError(f"clusters of K = {cb.k} triangles: the kernel "
+                         "takes K >= 1")
+    if origin.device.type == "cuda":
+        return _launch(cb, origin, direction, anyhit, t_max, force_global)
+    if origin.device.type == "cpu":
+        return traverse_cluster_pallas_reference(cb, origin, direction,
+                                                 anyhit=anyhit, t_max=t_max)
+    raise ValueError(f"traverse_cluster_pallas: unsupported device "
+                     f"{origin.device}")
 
 
 def traverse_cluster_pallas(cb: ClusterBvh, origin, direction, *,
@@ -186,11 +237,13 @@ def traverse_cluster_pallas(cb: ClusterBvh, origin, direction, *,
     scalar or (N,) initial t per ray (default 3.4e38). A CUDA tensor
     launches the kernel (a failed build or launch raises); a CPU tensor
     runs the twin."""
-    _check_rays(cb, origin, direction)
-    if origin.device.type == "cuda":
-        return _launch(cb, origin, direction, anyhit, t_max)
-    if origin.device.type == "cpu":
-        return traverse_cluster_pallas_reference(cb, origin, direction,
-                                                 anyhit=anyhit, t_max=t_max)
-    raise ValueError(f"traverse_cluster_pallas: unsupported device "
-                     f"{origin.device}")
+    return _traverse(cb, origin, direction, anyhit, t_max, False)
+
+
+def traverse_cluster_pallas_global(cb: ClusterBvh, origin, direction, *,
+                                   anyhit: bool = False,
+                                   t_max=None) -> dict:
+    """traverse_cluster_pallas with the kernel's "global" instance (node
+    reads through the read-only cache) whatever the table's size; a CPU
+    tensor runs the twin."""
+    return _traverse(cb, origin, direction, anyhit, t_max, True)

@@ -14,7 +14,9 @@ measures, on chip_smoke.py's 128x64 sphere and pose:
           262,144 sorted rays (`sweep_waves`; torch.profiler, mean of 10
           launches each): plain closest on the primary and the bounce
           wave, plain any-hit on the shadow wave, and emit_attrs on the
-          primary and the bounce wave
+          primary and the bounce wave; and the base-threading kernel's
+          (`traverse_cluster_pallas`) on the primary, bounce and shadow
+          any-hit waves
   slice   render_progressive at 512x512, 4 bounces, 8 spp: ms per sample
           (CUDA events, median of 3 after a 1-spp warm-up)
   grad    the bench's gradient step at 512x512, 4 bounces
@@ -22,8 +24,9 @@ measures, on chip_smoke.py's 128x64 sphere and pose:
 
 The measuring script goes to each process as source text that uses only
 entry points both trees have (`traverse_cluster_sweep` with `anyhit`
-and `emit_attrs`). Prints one JSON object: every run, and each side's
-median, min and max of every metric.
+and `emit_attrs`, `traverse_cluster_pallas` with `anyhit`). Prints one
+JSON object: every run, and each side's median, min and max of every
+metric.
 """
 
 from __future__ import annotations
@@ -90,6 +93,7 @@ import json
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+from dustraytracer_tpu_torch.ops import traverse_pallas as tp
 from dustraytracer_tpu_torch.ops import traverse_sweep as ts
 from dustraytracer_tpu_torch.render.film import render_progressive
 from dustraytracer_tpu_torch.scene.camera import make_camera
@@ -110,10 +114,19 @@ for key, wave, emit in (("plain_primary", "primary", False),
                         ("plain_bounce", "bounce", False),
                         ("plain_anyhit", "shadow_anyhit", False),
                         ("emit_primary", "primary", True),
-                        ("emit_bounce", "bounce", True)):
+                        ("emit_bounce", "bounce", True),
+                        ("pallas_primary", "primary", None),
+                        ("pallas_bounce", "bounce", None),
+                        ("pallas_anyhit", "shadow_anyhit", None)):
     o, d, ah = waves[wave]
-    run = lambda: ts.traverse_cluster_sweep(scene.cluster, o, d, anyhit=ah,
-                                            emit_attrs=emit)
+    if emit is None:  # the base-threading kernel
+        stem = "traverse_pallas_kernel"
+        run = lambda: tp.traverse_cluster_pallas(scene.cluster, o, d,
+                                                 anyhit=ah)
+    else:
+        stem = "traverse_sweep_kernel"
+        run = lambda: ts.traverse_cluster_sweep(scene.cluster, o, d,
+                                                anyhit=ah, emit_attrs=emit)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -123,7 +136,7 @@ for key, wave, emit in (("plain_primary", "primary", False),
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if getattr(e, "device_type", None) == DeviceType.CUDA
-          and "traverse_sweep_kernel" in e.name]
+          and stem in e.name]
     if len(us) != 10:
         raise RuntimeError(f"{key}: the profiler saw {len(us)} kernels")
     res[key + "_ms"] = sum(us) / 10 / 1e3
@@ -146,7 +159,8 @@ print(json.dumps({**res, "slice_ms_per_sample": sorted(slices)[1],
 '''
 
 METRICS = ("plain_primary_ms", "plain_bounce_ms", "plain_anyhit_ms",
-           "emit_primary_ms", "emit_bounce_ms", "slice_ms_per_sample",
+           "emit_primary_ms", "emit_bounce_ms", "pallas_primary_ms",
+           "pallas_bounce_ms", "pallas_anyhit_ms", "slice_ms_per_sample",
            "grad_ms_per_step")
 
 

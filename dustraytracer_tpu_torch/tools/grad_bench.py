@@ -269,24 +269,28 @@ def device_ms(fn, name: str | None = None, reps: int = 5) -> float:
     kernels it launched (those whose name contains `name`, if given)
     under torch.profiler, over `reps` calls after one warm-up. Unlike
     CUDA events around one call, it does not count host time the device
-    spends waiting for the launch."""
+    spends waiting for the launch. With a `name`, each call launches the
+    same number of such kernels, so a count that `reps` does not divide
+    means the profiler lost events: the window is profiled again, up to
+    three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if getattr(e, "device_type", None) == DeviceType.CUDA
-          and (name is None or name in e.name)]
-    if not us:
-        raise RuntimeError(f"the profiler saw no device kernel "
-                           f"{name or ''} in fn()")
-    return sum(us) / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and (name is None or name in e.name)]
+        if us and (name is None or len(us) % reps == 0):
+            return sum(us) / reps / 1e3
+    raise RuntimeError(f"the profiler saw {len(us)} device kernels "
+                       f"{name or ''} in {reps} calls of fn()")
 
 
 def _settings() -> RenderSettings:
