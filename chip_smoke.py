@@ -9,10 +9,11 @@ multi-process runtime, profiling, the viewer and the native BVH builder
 bundled scene, generated from a seed:
 
   0. card      nvidia-smi name and power limit; fails without CUDA
-  1. build     nvcc builds of csrc/traverse_sweep.cu, traverse_pallas.cu
-               and add_salt.cu for sm_90a, started together; ptxas lines,
-               and the registers of each instance of the sweep kernel and
-               of the base-threading kernel (none may spill)
+  1. build     nvcc builds of csrc/traverse_sweep.cu, traverse_pallas.cu,
+               add_salt.cu and peaks.cu for sm_90a, started together;
+               ptxas lines, and the registers of each instance of the
+               sweep kernel, of the base-threading kernel and of the FMA
+               peak kernel (none may spill)
   2. scene     a displaced lat-long sphere (128 x 64 segments) over a
                textured ground (tools/grad_bench.py::sphere_doc), built
                by the port's build_scene; also its 16 x 8 variant (226
@@ -141,6 +142,25 @@ Phases 17-23 run on the bench sphere again, after phase 16:
                build of the sphere equal to the numpy builder's; seconds
                of both
 
+Phase 24 measures the card and K1's speed of light (utils/roofline.py),
+on the waves of phase 3:
+
+ 24. roofline  "peaks": the four measured ceilings (f32 and bf16 matmul,
+               the FP32 rate by the FMA peak kernel csrc/peaks.cu, HBM)
+               beside NVIDIA's figures, none above 105%, and the peak
+               kernel against its float64 plain version within its
+               rounding bound; "calibration": K1's rates per warp
+               iteration, leaf iteration and served leaf from the chain
+               scenes, with each chain's counters; "attribution", per
+               wave: device ms by device_seconds_per_call beside phase
+               3's torch.profiler ms (within 15% on the primary wave),
+               sol_pct, sol_raw_pct (at most 170) and the window and leaf
+               shares; "volume", per wave: the float64 replay of
+               half the warps against the kernel's counters (visits equal
+               on >= 99% of the rays, the window share within one point
+               of the counters' on the same warps and of the whole
+               wave's walk_useful_share), beside useful_share
+
 Each kernel's launch counts are set to 0 just before the path that runs
 it and read just after. Each phase prints one JSON line; then a
 {"kernels": [...]} line, the nvidia-smi line and, last, {"ok": true,
@@ -189,7 +209,8 @@ TWIN_REPS = 3        # the plain-PyTorch walks take 0.1-0.5 s per wave
 SWEEP_KERNEL = "traverse_sweep_kernel"  # the device kernels' name stems
 PALLAS_KERNEL = "traverse_pallas_kernel"
 KERNELS = ("traverse_sweep", "traverse_sweep[emit_attrs]",
-           "traverse_sweep[counters]", "traverse_pallas", "add_salt")
+           "traverse_sweep[counters]", "traverse_pallas", "add_salt",
+           "fma_peak")
 SWEEP_MODES = {"traverse_sweep": "plain",  # K1's rows -> instances
                "traverse_sweep[emit_attrs]": "emit_attrs",
                "traverse_sweep[counters]": "counters"}
@@ -211,6 +232,7 @@ SHARD_GRAD_SIZE = 48
 MULTIHOST_SPP = 2
 VIEWER_SIZE = 256
 WAIT_S = 120.0  # bound on every wait for a viewer or worker
+VOLUME_WARPS = 4096  # warps of each 8,192-warp wave the replay walks
 
 
 def check(cond: bool, msg: str) -> None:
@@ -350,23 +372,25 @@ def tie_rays(pos, pairs, seed: int = 6):
 
 
 def reset_launches() -> None:
+    from dustraytracer_tpu_torch.ops import peaks as pk
     from dustraytracer_tpu_torch.ops import traverse_pallas as tp
     from dustraytracer_tpu_torch.ops import traverse_sweep as ts
 
     ts.LAUNCHES = ts.EMIT_LAUNCHES = ts.COUNT_LAUNCHES = 0
-    tp.LAUNCHES = 0
+    tp.LAUNCHES = pk.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     """Launches since reset_launches(), by kernel (add_salt runs only in
     the cache-reload tool's child processes, which report their own)."""
+    from dustraytracer_tpu_torch.ops import peaks as pk
     from dustraytracer_tpu_torch.ops import traverse_pallas as tp
     from dustraytracer_tpu_torch.ops import traverse_sweep as ts
 
     return {"traverse_sweep": ts.LAUNCHES,
             "traverse_sweep[emit_attrs]": ts.EMIT_LAUNCHES,
             "traverse_sweep[counters]": ts.COUNT_LAUNCHES,
-            "traverse_pallas": tp.LAUNCHES}
+            "traverse_pallas": tp.LAUNCHES, "fma_peak": pk.LAUNCHES}
 
 
 def compare_images(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -1046,6 +1070,108 @@ def port_phases(scene, camera, lights, glb: Path, tmp: Path, env,
          max_abs_box_diff=box)
 
 
+def roofline_phase(cb, waves, work, profiler_ms: dict,
+                   launches: dict) -> dict:
+    """24. The card's measured peaks, K1's calibrated rates, each wave's
+    attribution at those rates and its replayed volume (utils/roofline.py).
+    `work` and `profiler_ms` are phase 3c's sweep_work and phase 3's
+    torch.profiler device ms of each wave. Its path, for the FMA peak
+    kernel's count, is measure_peaks. Returns the fma_peak row of the
+    kernels line. It takes no torch.profiler trace of its own: late in
+    this process the profiler lost sweep kernels' events (3 of 5, three
+    profiles in a row)."""
+    from dustraytracer_tpu_torch.ops import peaks as pk
+    from dustraytracer_tpu_torch.tools.grad_bench import median_ms
+    from dustraytracer_tpu_torch.utils import roofline as rl
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    reset_launches()
+    peaks = rl.measure_peaks()
+    torch.cuda.synchronize()
+    launches["roofline"] = read_launches()
+    check(launches["roofline"]["fma_peak"] > 0,
+          f"measure_peaks launched {launches['roofline']}")
+    # the FMA peak kernel against its plain version at the longer chain
+    n, iters = pk.fill_threads(dev), rl.FMA_ITERS[1]
+    x0 = torch.linspace(1.0, 1.25, n, device=dev)
+    got = pk.fma_chain(x0, iters)
+    ref = pk.fma_chain_reference(x0, iters)
+    torch.cuda.synchronize()
+    err = (got.double() - ref).abs()
+    excess = float((err / pk.fma_tolerance(ref, iters)).max())
+    check(excess <= 1.0, f"fma_peak: error {float(err.max())} is "
+          f"{excess:.3f} of its rounding bound")
+    fma_ms = 1e3 * rl.device_seconds_per_call(
+        lambda _i: pk.fma_chain(x0, iters), n_lo=1, n_hi=5, strict=True)
+    bound_s, bound_by = rl.bound_seconds(pk.fma_flops(n, iters), 8 * n)
+    row = {"max_abs_err": float(err.max()), "ms": fma_ms,
+           "plain_ms": median_ms(lambda: pk.fma_chain_reference(x0, iters),
+                                 3),
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "library_ms": None}
+    emit("peaks", device=peaks["device"], allow_tf32=peaks["allow_tf32"],
+         measured={k: peaks[k] for k in rl.PUBLISHED},
+         published=rl.PUBLISHED,
+         pct_of_published={k: 100.0 * peaks[k] / v
+                           for k, v in rl.PUBLISHED.items()},
+         bf16_note="cuBLAS's rate on 2048^3 products, not the card's peak",
+         fma_peak={**row, "threads": n, "iters": iters,
+                   "err_over_bound": excess,
+                   "tflops": pk.fma_flops(n, iters) / fma_ms / 1e9},
+         launches=launches["roofline"])
+
+    rates = rl.calibrate_sweep_rates(cb.k, cb.v0.shape[0])
+    emit("calibration", **{k: rates[k] for k in (
+        "window_ns", "leaf_iter_ns", "leaf_ns", "n_tiles",
+        "leaf_iteration_ns")},
+         chains={name: [{"m": c["m"], "ms": c["seconds"] * 1e3,
+                         "W": c["exec_windows"], "E": c["exec_leafs"],
+                         "S": c["leaf_tests"]} for c in runs]
+                 for name, runs in rates["chains"].items()})
+
+    for wave, (wo, wd, ah) in waves.items():
+        att = rl.sweep_attribution(cb, wo, wd, rates, anyhit=ah)
+        prof_ms = profiler_ms[wave]
+        check(att["sol_raw_pct"] <= rl.SOL_CEILING_PCT, f"{wave}: {att}")
+        ratio = att["measured_s"] * 1e3 / prof_ms
+        check(wave != "primary" or abs(ratio - 1.0) <= 0.15,
+              f"primary: device_seconds_per_call {att['measured_s']} s "
+              f"against the profiler's {prof_ms} ms")
+        emit("attribution", wave=wave, anyhit=ah,
+             measured_ms=att["measured_s"] * 1e3, profiler_ms=prof_ms,
+             measured_over_profiler=ratio,
+             model_ms=att["model_s"] * 1e3,
+             **{k: att[k] for k in (
+                 "sol_pct", "sol_raw_pct", "window_share_pct",
+                 "leaf_share_pct", "mrays_per_s", "sol_mrays_per_s",
+                 "exec_windows", "exec_leafs", "leaf_tests",
+                 "windows_per_tile", "leafs_per_tile",
+                 "leaf_tests_per_tile")})
+        vol = rl.volume_efficiency(cb, wo, wd, rates, max_tiles=VOLUME_WARPS,
+                                   anyhit=ah)
+        check(vol["visits_equal_pct"] >= 99.0,
+              f"{wave}: replayed visits equal the kernel's on only "
+              f"{vol['visits_equal_pct']:.2f}% of the sampled rays")
+        gap = vol["vol_eff_window_pct"] - vol["kernel_window_pct"]
+        check(abs(gap) <= 1.0, f"{wave}: replay's window share "
+              f"{vol['vol_eff_window_pct']:.3f}% against the counters' "
+              f"{vol['kernel_window_pct']:.3f}% on the same warps")
+        wk = work[wave]
+        gap = vol["vol_eff_window_pct"] - 100.0 * wk["walk_useful_share"]
+        check(abs(gap) <= 1.0, f"{wave}: replay's window share "
+              f"{vol['vol_eff_window_pct']:.3f}% against the whole wave's "
+              f"walk_useful_share {wk['walk_useful_share']:.5f}")
+        emit("volume", wave=wave, **vol,
+             walk_useful_share_pct=100.0 * wk["walk_useful_share"],
+             useful_share_pct=100.0 * wk["useful_share"],
+             window_pct_minus_wave=gap,
+             leaf_pct_minus_wave=vol["vol_eff_leaf_pct"]
+             - 100.0 * wk["useful_share"])
+    emit("roofline", seconds=time.perf_counter() - t_phase)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1092,7 +1218,7 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     # 1. build: one nvcc per source, all started together
-    srcs = ("traverse_sweep", "traverse_pallas", "add_salt")
+    srcs = ("traverse_sweep", "traverse_pallas", "add_salt", "peaks")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(srcs)) as pool:
         recs = dict(zip(srcs, pool.map(load_library, srcs)))
@@ -1111,9 +1237,12 @@ def main() -> int:
                                     SWEEP_KERNEL, INSTANCE_OF)
     pallas_regs = instance_registers(recs["traverse_pallas"]["log"],
                                      PALLAS_KERNEL, PALLAS_INSTANCE_OF)
+    peak_regs = instance_registers(recs["peaks"]["log"], "fma_peak_kernel",
+                                   {"": "fma_peak"})
     for src_name, regs, want in (
             ("traverse_sweep", sweep_regs, SWEEP_MODES.values()),
-            ("traverse_pallas", pallas_regs, tp.NODE_TABLES)):
+            ("traverse_pallas", pallas_regs, tp.NODE_TABLES),
+            ("peaks", peak_regs, ("fma_peak",))):
         check(sorted(regs) == sorted(want),
               f"ptxas lines for the {src_name} instances: {regs}")
         for inst, reg in regs.items():
@@ -1696,6 +1825,11 @@ def main() -> int:
     port_phases(scene, camera, lights, glb, Path(tmp.name), env, launches)
     tmp.cleanup()
 
+    # 24. the card's peaks, K1's calibrated speed of light and volume
+    fma_row = roofline_phase(
+        cb, waves, work, {w: r["kernel_ms"] for w, r in results.items()},
+        launches)
+
     # 10. the build cache: four fresh processes build, reload, die in
     # nvcc and rebuild the add_salt kernel; each reports its launches
     reload = repro_cache_hang.run(timeout=240.0)
@@ -1722,7 +1856,8 @@ def main() -> int:
     salt_bound, salt_by = bound_seconds(8 * 128, salt_bytes)
     main = {"traverse_sweep": "grad", "traverse_sweep[emit_attrs]": "grad",
             "traverse_sweep[counters]": "kernel_counters",
-            "traverse_pallas": "kernel_pallas", "add_salt": "cache_reload"}
+            "traverse_pallas": "kernel_pallas", "add_salt": "cache_reload",
+            "fma_peak": "roofline"}
     src = "dustraytracer_tpu_torch/csrc/"
     rows = [
         {"name": "traverse_sweep", "source": src + "traverse_sweep.cu",
@@ -1761,7 +1896,10 @@ def main() -> int:
          "replaces": "tools/repro_cache_hang.py:52",
          "max_abs_err": a_kid["max_abs_err"], "ms": a_kid["ms"],
          "plain_ms": a_kid["plain_ms"], "bound_ms": salt_bound * 1e3,
-         "bound_by": salt_by, "library_ms": a_kid["plain_ms"]}]
+         "bound_by": salt_by, "library_ms": a_kid["plain_ms"]},
+        {"name": "fma_peak", "source": src + "peaks.cu",
+         "replaces": "dustraytracer_tpu/utils/roofline.py:413",
+         **fma_row, "registers": peak_regs["fma_peak"]["registers"]}]
     by_wave = {
         "plain": {w: r["kernel_ms"] for w, r in results.items()},
         "emit_attrs": {w: r["kernel_emit_ms"] for w, r in emit_res.items()},
