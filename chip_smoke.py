@@ -161,6 +161,22 @@ on the waves of phase 3:
                of the counters' on the same warps and of the whole
                wave's walk_useful_share), beside useful_share
 
+Phases 25-26 run the device tuning tools (dustraytracer_tpu_torch/tools/)
+on the bench sphere, in one fresh process:
+
+ 25. stages    tools/profile_stages.py at 512x512 b4: one line per stage
+               (wall ms, device ms, idle share, the places that make the
+               host wait for the card, the slope's device ms of the
+               parts), the refit's share of the vertex step; the fwd+bwd
+               step may not take less than the forward sample
+ 26. tuning    a short form of tools/retune_fetch.py, bench_anyhit_sort.py
+               and bench_cluster_k.py, 3 alternating rounds: the kernel
+               against the gather fetch (b2 sample, b4 step), each wave
+               sorted against bare (bit for bit), K = 16, 32 and 64 (K1
+               bit for bit with its twin on every wave); what each
+               `auto` rule picks now and what these rounds would pick,
+               asserting no winner
+
 Each kernel's launch counts are set to 0 just before the path that runs
 it and read just after. Each phase prints one JSON line; then a
 {"kernels": [...]} line, the nvidia-smi line and, last, {"ok": true,
@@ -233,6 +249,8 @@ MULTIHOST_SPP = 2
 VIEWER_SIZE = 256
 WAIT_S = 120.0  # bound on every wait for a viewer or worker
 VOLUME_WARPS = 4096  # warps of each 8,192-warp wave the replay walks
+TUNING_ROUNDS = 3
+TUNING_KS = (16, 32, 64)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1172,6 +1190,121 @@ def roofline_phase(cb, waves, work, profiler_ms: dict,
     return row
 
 
+# argv: scene, size, bounces, rounds, comma-separated Ks
+TOOLS_CHILD = r"""
+import json
+import sys
+import time
+import torch
+from dustraytracer_tpu_torch.scene.settings import LightParams
+from dustraytracer_tpu_torch.tools import (bench_anyhit_sort,
+                                           bench_cluster_k, profile_stages,
+                                           retune_fetch, tuning)
+name, size, bounces, rounds = (sys.argv[1], int(sys.argv[2]),
+                               int(sys.argv[3]), int(sys.argv[4]))
+ks = [int(k) for k in sys.argv[5].split(",")]
+dev = torch.device("cuda")
+t0 = time.perf_counter()
+scene, camera, label, _ = tuning.build(name, dev)
+settings = profile_stages.settings_for(bounces, "reference", 0.0)
+lights = LightParams.from_settings(settings, device=dev)
+out = {"stages": profile_stages.measure(scene, camera, lights, settings,
+                                        size, [], label)}
+del scene
+t1 = time.perf_counter()
+rows = []
+fetch = retune_fetch.measure([name], rounds, dev, rows)
+kinds = bench_anyhit_sort.measure([name], size, rounds, dev, rows)
+recs = bench_cluster_k.measure([name], ks, size, rounds, dev, rows,
+                               twin=True)
+out.update(rows=rows, fetch=retune_fetch.new_band(fetch),
+           sort={i: bench_anyhit_sort.pick_sort(
+               [k for k in kinds if k["closest_instance"] == i])
+               for i in ("plain", "emit")},
+           k=bench_cluster_k.pick_k(recs), stages_seconds=t1 - t0,
+           tuning_seconds=time.perf_counter() - t1)
+print(json.dumps(out))
+"""
+
+
+def tools_phases(scene, env) -> None:
+    """25.-26. tools/profile_stages.py at 512x512 b4, then the short form
+    of retune_fetch, bench_anyhit_sort and bench_cluster_k, on the bench
+    sphere in one fresh process (its torch.profiler then sees every
+    kernel).
+
+    25. stages: one line per stage; the fwd+bwd step may not take less
+    than the forward sample in wall or in device ms; the refit's share of
+    the vertex step.
+    26. tuning: TUNING_ROUNDS rounds, the kernel against the gather
+    fetch, each wave sorted against bare (bit for bit, or the tool
+    raises), K = TUNING_KS with K1 bit for bit against its twin on every
+    wave; what each `auto` rule picks now and what these rounds would
+    pick. It asserts correctness, never a winner."""
+    from dustraytracer_tpu_torch.render.integrator import (AUTO_SORTED,
+                                                           KERNEL_FETCH_BAND,
+                                                           _resolve_fetch)
+    from dustraytracer_tpu_torch.scene.scene import AUTO_CLUSTER_K
+    from dustraytracer_tpu_torch.scene.settings import RenderSettings
+
+    proc = subprocess.run(
+        [sys.executable, "-c", TOOLS_CHILD, "16.1k", str(WIDTH),
+         str(BOUNCES), str(TUNING_ROUNDS), ",".join(map(str, TUNING_KS))],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"tools rc {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    rows = {r["stage"]: r for r in res["stages"]}
+    for name, r in rows.items():
+        emit("stages", stage=name, **{k: r.get(k) for k in (
+            "wall_ms", "device_ms", "idle_pct", "syncs", "slope_ms")})
+    fwd, step = rows["fwd"], rows["step_mat"]
+    for key in ("wall_ms", "device_ms"):
+        check(step[key] >= fwd[key], f"stages: the step's {key} "
+              f"{step[key]} is below the forward sample's {fwd[key]}")
+    emit("stages", size=[WIDTH, HEIGHT], bounces=BOUNCES,
+         refit_share_of_vertex_step={
+             k: rows["refit"][k] / rows["step_tri_pos"][k]
+             for k in ("wall_ms", "device_ms")},
+         seconds=res["stages_seconds"])
+
+    for r in res["rows"]:
+        if "twin_equal" in r:
+            check(all(r["twin_equal"].values()),
+                  f"tuning: K1 at K={r['k']} differs from its twin "
+                  f"{r['twin_equal']}")
+            emit("tuning", rule="cluster_k", k=r["k"],
+                 cluster_nodes=r["cluster_nodes"],
+                 build_seconds=r["build_seconds"], twin_equal=True,
+                 **{m: r["step_weighted"][m] for m in ("wall", "device")})
+        elif "wave" in r:
+            check(r["equal_bit_for_bit"], f"tuning: sort {r}")
+            emit("tuning", rule="ray_sort", wave=r["wave"],
+                 instance=r["instance"], equal_bit_for_bit=True,
+                 **{side: {m: r[side][m] for m in ("wall", "device")}
+                    for side in ("sorted", "bare")})
+        elif "kernel" in r:
+            emit("tuning", rule="shade_fetch", scene=r["scene"],
+                 **{f: {w: {m: r[f][w][m] for m in ("wall", "device",
+                                                    "mem_mib")}
+                        for w in ("sample", "step")}
+                    for f in ("kernel", "gather")})
+    check(sorted(r["k"] for r in res["rows"] if "twin_equal" in r)
+          == sorted(TUNING_KS), "tuning: a K was not measured")
+    emit("tuning", picks_now={
+        "kernel_fetch_band": KERNEL_FETCH_BAND,
+        "bench_sphere_fetch": _resolve_fetch(scene, RenderSettings()),
+        "auto_sorted": list(AUTO_SORTED), "auto_cluster_k": AUTO_CLUSTER_K,
+        "bench_sphere_k": scene.cluster.k},
+        these_rounds_would_pick={
+            "kernel_fetch_band": res["fetch"]["band"],
+            "auto_sorted": {i: list(v["sorted"])
+                            for i, v in res["sort"].items()},
+            "auto_cluster_k": res["k"]["k"]},
+        rounds=TUNING_ROUNDS, seconds=res["tuning_seconds"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1829,6 +1962,9 @@ def main() -> int:
     fma_row = roofline_phase(
         cb, waves, work, {w: r["kernel_ms"] for w, r in results.items()},
         launches)
+
+    # 25.-26. the stage table and the tuning tools' short form
+    tools_phases(scene, env)
 
     # 10. the build cache: four fresh processes build, reload, die in
     # nvcc and rebuild the add_salt kernel; each reports its launches

@@ -13,7 +13,8 @@ barycentrics, uvs or BVH visit heat).
 Traversal is picked per scene and settings.traversal (`_make_tracers`):
 all-pairs brute force for small scenes, the sweep traversal
 (ops/traverse_sweep.py: the CUDA kernel on a card, its twin on the CPU)
-with rays sorted by (direction octant, origin Morton) first, the
+on the rays as they come (ray_sort="on" sorts them by direction octant
+and origin Morton code first), the
 lockstep cluster walk, or the gather walk of the scene BVH; alpha_test
 cuts out transparent texels, inside the gather walk or by re-tracing
 past them on the cluster paths. It is a discrete selector: it gets
@@ -56,6 +57,19 @@ from dustraytracer_tpu_torch.scene.settings import (DebugMode, LightParams,
                                                     RenderSettings)
 
 _PARK = 3.0e37  # origin of dead lanes: their walk ends at the root
+# padded-triangle counts where shade_fetch="auto" picks the kernel fetch
+# on a card (None: nowhere). tools/retune_fetch.py on an H100, 4k to
+# 90.7k triangles: the kernel fetch is ahead on the forward sample (9-20%
+# less device time) and gather on the step (9-10%), so neither beats the
+# other on both, and the band stays where the JAX package put it; the
+# kernel fetch's step takes half the memory.
+KERNEL_FETCH_BAND = (12288, 16384)
+# the sweep tracers that ray_sort="auto" sorts: none. On an H100
+# (tools/bench_anyhit_sort.py) the waves of a sample arrive coherent in
+# pixel order, the kernel walks them within ~12% of its time on sorted
+# rays, and the sort's argsort, gathers and scatter cost about twice the
+# walk.
+AUTO_SORTED = ()
 TRAVERSALS = ("auto", "sweep", "cluster", "brute", "gather")
 SHADINGS = ("reference", "pbr")
 
@@ -91,10 +105,11 @@ def _bary_min(bary: torch.Tensor) -> torch.Tensor:
 def _resolve_fetch(scene, settings: RenderSettings) -> str:
     """The triangle-attribute fetch: "kernel" (in-kernel emission) or
     "gather". An explicit "kernel" is honoured or raises ValueError;
-    "auto" picks "kernel" on a card for cluster scenes of 12,288 to
-    16,384 padded triangles that the sweep traverses (the JAX package's
-    measured band), else "gather", and always "gather" on the CPU.
-    "onehot" is a TPU workaround and means "gather" here."""
+    "auto" picks "kernel" on a card for cluster scenes whose padded
+    triangle count lies in KERNEL_FETCH_BAND (12,288 to 16,384, which
+    tools/retune_fetch.py's H100 measurement kept) and that the sweep
+    traverses, else "gather", and always "gather" on the CPU. "onehot"
+    is a TPU workaround and means "gather" here."""
     fetch = settings.shade_fetch
     cb = scene.cluster
     wavefront_only = (settings.smooth_shading or settings.soft_edges > 0.0
@@ -113,7 +128,9 @@ def _resolve_fetch(scene, settings: RenderSettings) -> str:
     if fetch != "auto" or scene.device.type == "cpu":
         return "gather"
     n = scene.tri_pos.shape[0]
-    if (12288 <= n <= 16384 and cb is not None and cb.uv is not None
+    band = KERNEL_FETCH_BAND
+    if (band is not None and band[0] <= n <= band[1]
+            and cb is not None and cb.uv is not None
             and not wavefront_only
             and settings.traversal in ("auto", "sweep")
             and cb.n_clusters * cb.k > settings.brute_max_tris):
@@ -387,8 +404,9 @@ def _make_tracers(scene, settings: RenderSettings):
     - gather, or a scene without cluster tables: the scene-BVH walk,
       which applies alpha_test itself.
 
-    Sweep rays are sorted (ray_sort "auto" or "on"; the others only with
-    "on"). alpha_test on a cluster path re-traces past transparent hits.
+    ray_sort "on" sorts both tracers' rays, "auto" those of the sweep
+    tracers named in AUTO_SORTED, "off" none. alpha_test on a cluster
+    path re-traces past transparent hits.
     Both tracers detach their rays and run under no_grad."""
     cb = scene.cluster
     trav = settings.traversal
@@ -432,9 +450,15 @@ def _make_tracers(scene, settings: RenderSettings):
             return traverse_anyhit(scene, o, d,
                                    alpha_test=settings.alpha_test)
 
-    if settings.ray_sort == "on" or (settings.ray_sort == "auto"
-                                     and use_sweep):
-        closest, anyhit = _sorted_tracers(scene, closest, anyhit)
+    sort = ()
+    if settings.ray_sort == "on":
+        sort = ("closest", "anyhit")
+    elif settings.ray_sort == "auto" and use_sweep:
+        sort = AUTO_SORTED
+    if sort:
+        s_closest, s_anyhit = _sorted_tracers(scene, closest, anyhit)
+        closest = s_closest if "closest" in sort else closest
+        anyhit = s_anyhit if "anyhit" in sort else anyhit
     if use_cluster and settings.alpha_test:
         closest, anyhit = _alpha_retrace_tracers(
             scene, closest, rounds=settings.alpha_rounds)

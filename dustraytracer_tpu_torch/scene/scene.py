@@ -20,6 +20,10 @@ from dustraytracer_tpu_torch.accel.cluster import ClusterBvh
 from dustraytracer_tpu_torch.scene.gltf import GltfDocument, load_gltf
 
 MAX_LEAF = 8
+# build_scene's cluster_k="auto": on an H100 (tools/bench_cluster_k.py)
+# K = 32 took the least sweep-kernel time of a grad step's 8 launches at
+# 11.2k, 16.1k and 90.7k triangles; the next best, K = 16, 19-27% more
+AUTO_CLUSTER_K = 32
 
 
 def _pad_to(arr: np.ndarray, n: int, fill=0.0) -> np.ndarray:
@@ -230,7 +234,7 @@ def build_scene(doc: GltfDocument, leaf_target: int = MAX_LEAF,
         has_alpha = np.zeros(1, bool)
 
     if cluster_k == "auto":
-        cluster_k = 32  # the JAX package's auto pick
+        cluster_k = AUTO_CLUSTER_K
     cluster = None
     if cluster_k:
         cluster = build_cluster_bvh(pos_p, k=cluster_k, bins=bins,

@@ -12,7 +12,8 @@ Each section prints one JSON line; --out gets all of them:
            512x512, 4-bounce fwd+bwd step with the kernel fetch and with
            the gather fetch, timed with CUDA events in alternating order
            (k g g k k g ...): median, min and max ms of the step, median
-           forward and backward ms, rays/s, peak memory above the
+           forward and backward ms, the device ms of a step
+           (torch.profiler) in each round, rays/s, peak memory above the
            resident scene
   repeat   the 128x64 step twice on the same inputs: are the loss and
            the gradients equal bit for bit?
@@ -316,16 +317,23 @@ def _timed(run):
     return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
 
 
-def fetch_section(n_lon: int, n_lat: int, reps: int, dev) -> dict:
-    scene, camera, lights, settings, build_s = _setup(n_lon, n_lat, dev)
+def fetch_section(scene, camera, reps: int, dev, label: str) -> dict:
+    """The 512x512 b4 step on `scene` with the kernel and with the gather
+    fetch, `reps` rounds in alternating order (k g, g k, ...); in each
+    round each fetch's forward and backward ms by CUDA events and its
+    device ms (device_ms of one step). Per fetch: median, min and max
+    step ms, the device ms, the rounds themselves ("wall_ms_rounds",
+    "device_ms_rounds"), rays/s and the peak memory above the resident
+    scene."""
+    settings = _settings()
+    lights = LightParams.from_settings(settings, device=dev)
     runs = {f: partial(grad_step, scene, camera, lights,
                        settings.replace(shade_fetch=f), WIDTH, HEIGHT)
             for f in FETCHES}
-    res = {"section": "fetch", "sphere": f"{n_lon}x{n_lat}",
+    res = {"section": "fetch", "sphere": label,
            "triangles": scene.n_tris,
            "padded_triangles": int(scene.tri_pos.shape[0]),
-           "auto": _resolve_fetch(scene, settings),
-           "build_seconds": build_s}
+           "auto": _resolve_fetch(scene, settings)}
     mem = {}
     for f, run in runs.items():
         run()  # warm-up: allocator, packed tables
@@ -336,9 +344,11 @@ def fetch_section(n_lon: int, n_lat: int, reps: int, dev) -> dict:
         torch.cuda.synchronize()
         mem[f] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     times = {f: [] for f in FETCHES}
+    dev_ms = {f: [] for f in FETCHES}
     for i in range(reps):
         for f in (FETCHES if i % 2 == 0 else FETCHES[::-1]):
             times[f].append(_timed(runs[f]))
+            dev_ms[f].append(device_ms(runs[f], reps=1))
     rays = WIDTH * HEIGHT * 2 * BOUNCES
     for f, ts in times.items():
         tot = [a + b for a, b in ts]
@@ -346,6 +356,10 @@ def fetch_section(n_lon: int, n_lat: int, reps: int, dev) -> dict:
         res[f] = {"ms_median": med, "ms_min": min(tot), "ms_max": max(tot),
                   "fwd_ms_median": float(np.median([a for a, _ in ts])),
                   "bwd_ms_median": float(np.median([b for _, b in ts])),
+                  "device_ms_median": float(np.median(dev_ms[f])),
+                  "device_ms_min": min(dev_ms[f]),
+                  "device_ms_max": max(dev_ms[f]),
+                  "wall_ms_rounds": tot, "device_ms_rounds": dev_ms[f],
                   "rays_per_second": rays / (med / 1e3),
                   "step_mem_gib": mem[f]}
     return res
@@ -467,7 +481,9 @@ def main(argv=None) -> int:
         print(json.dumps(rec), flush=True)
 
     for n_lon, n_lat in SPHERES:
-        add(fetch_section(n_lon, n_lat, REPS, dev))
+        scene, camera, _, _, build_s = _setup(n_lon, n_lat, dev)
+        add({**fetch_section(scene, camera, REPS, dev, f"{n_lon}x{n_lat}"),
+             "build_seconds": build_s})
     add(repeat_section(dev))
     add(profile_section(dev))
     smoke = build_scene(sphere_doc(*SMOKE_SPHERE))

@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from dustraytracer_tpu_torch.render.integrator import _resolve_fetch
+from dustraytracer_tpu_torch.render.integrator import (KERNEL_FETCH_BAND,
+                                                       _resolve_fetch)
 from dustraytracer_tpu_torch.scene.camera import make_camera
 from dustraytracer_tpu_torch.scene.scene import build_scene
 from dustraytracer_tpu_torch.scene.settings import (LightParams,
@@ -18,7 +19,8 @@ def test_smoke_sphere_lies_in_the_kernel_fetch_band():
     # chip_smoke.py relies on "auto" picking the kernel fetch on a card
     scene = build_scene(grad_bench.sphere_doc(*grad_bench.SMOKE_SPHERE))
     assert scene.n_tris == 2 * 128 * 63 + 2
-    assert 12288 <= scene.tri_pos.shape[0] <= 16384
+    lo, hi = KERNEL_FETCH_BAND
+    assert lo <= scene.tri_pos.shape[0] <= hi
     assert _resolve_fetch(scene, RenderSettings()) == "gather"  # the CPU
 
 

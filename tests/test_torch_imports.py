@@ -40,6 +40,13 @@ def test_port_imports_without_jax():
         "import dustraytracer_tpu_torch.utils.image\n"
         "import dustraytracer_tpu_torch.tools.grad_bench\n"
         "import dustraytracer_tpu_torch.tools.repro_cache_hang\n"
+        "import dustraytracer_tpu_torch.tools.tuning\n"
+        "import dustraytracer_tpu_torch.tools.profile_stages\n"
+        "import dustraytracer_tpu_torch.tools.bisect_segment\n"
+        "import dustraytracer_tpu_torch.tools.retune_fetch\n"
+        "import dustraytracer_tpu_torch.tools.bench_anyhit_sort\n"
+        "import dustraytracer_tpu_torch.tools.bench_cluster_k\n"
+        "import dustraytracer_tpu_torch.tools.attr_sweep\n"
         "import dustraytracer_tpu_torch.ops.traverse\n"
         "import dustraytracer_tpu_torch.ops.traverse_brute\n"
         "import dustraytracer_tpu_torch.ops.traverse_cluster\n"
@@ -48,7 +55,8 @@ def test_port_imports_without_jax():
         "import dustraytracer_tpu_torch.ops.peaks\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'dustraytracer_tpu' or m.startswith('dustraytracer_tpu.')]"
+        " or m == 'dustraytracer_tpu' or m.startswith('dustraytracer_tpu.')"
+        " or m == 'bench_scenes']"
         "\nassert not bad, bad\n"
         "print('ok')\n")
     assert proc.returncode == 0, proc.stderr
