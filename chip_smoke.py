@@ -10,10 +10,11 @@ bundled scene, generated from a seed:
 
   0. card      nvidia-smi name and power limit; fails without CUDA
   1. build     nvcc builds of csrc/traverse_sweep.cu, traverse_pallas.cu,
-               add_salt.cu and peaks.cu for sm_90a, started together;
-               ptxas lines, and the registers of each instance of the
-               sweep kernel, of the base-threading kernel and of the FMA
-               peak kernel (none may spill)
+               add_salt.cu, peaks.cu and rows_grad.cu for sm_90a, started
+               together; ptxas lines, and the registers of each instance
+               of the sweep kernel, of the base-threading kernel, of the
+               FMA peak kernel and of the row-fetch backward's two passes
+               (none may spill)
   2. scene     a displaced lat-long sphere (128 x 64 segments) over a
                textured ground (tools/grad_bench.py::sphere_doc), built
                by the port's build_scene; also its 16 x 8 variant (226
@@ -73,7 +74,10 @@ bundled scene, generated from a seed:
   7. grad      the bench's gradient step at 512x512, 4 bounces: mean image,
                backward to albedo, emissive, every light field, camera
                position and vertices (Scene.replace refits in the step);
-               finite and nonzero gradients, 2 x bounces launches, ms per
+               finite and nonzero gradients, 2 x bounces K1 launches and
+               2 x bounces - 1 of K4 (the row fetch's backward: the
+               material rows of every bounce, the triangle rows of all
+               but the last, whose hit attributes reach no loss), ms per
                fwd+bwd step, rays/s, peak memory; the same step with the
                gather fetch; the camera position alone (kernel fetch)
                agrees with the full step
@@ -177,9 +181,32 @@ on the bench sphere, in one fresh process:
                `auto` rule picks now and what these rounds would pick,
                asserting no winner
 
+Phases 27-28 follow phase 8, on the bench sphere; phase 29 follows 26:
+
+ 27. rows      K4 (csrc/rows_grad.cu, the row fetch's deterministic
+               backward) against its twin (index_add_ into zeros) on the
+               calls of one bench step, recorded, and on the issue's three
+               shapes (262,144 lanes into the 2 x 11 material table and
+               the 16,130 x 19 triangle table with ~40% of the lanes on
+               row 0, and into a 256 x 256 float texel stack): within
+               atol 2e-4 max|g| + rtol 2e-3 of the twin and of its float64
+               run, two launches equal bit for bit; device ms of the
+               wrapper (sort and plan included), of the two kernels
+               alone, of the twin and of the library's torch.index_add;
+               the bound from bytes
+ 28. repeat    phase 7's step twice with the kernel fetch and twice with
+               the gather fetch: loss and every gradient equal bit for bit
+ 29. bench     tools/bench.py in a fresh process (one JSON line, the bench
+               step's rays/s), then tools/bench_scenes.py --configs
+               cornell_256,suzanne_512 --sol-reps 1 into a temporary
+               report, which tools/update_readme_perf.py renders into a
+               temporary copy of README.md (the JAX table unchanged)
+
 Each kernel's launch counts are set to 0 just before the path that runs
-it and read just after. Each phase prints one JSON line; then a
-{"kernels": [...]} line, the nvidia-smi line and, last, {"ok": true,
+it and read just after. Each phase prints one JSON line. Device ms come
+from torch.profiler (grad_bench.device_ms); where the profiler lost a
+call's kernels in every try, that call was timed by CUDA events instead,
+and the "timers" line names it. Then a {"kernels": [...]} line, the nvidia-smi line and, last, {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero before the last
 line.
 """
@@ -226,7 +253,7 @@ SWEEP_KERNEL = "traverse_sweep_kernel"  # the device kernels' name stems
 PALLAS_KERNEL = "traverse_pallas_kernel"
 KERNELS = ("traverse_sweep", "traverse_sweep[emit_attrs]",
            "traverse_sweep[counters]", "traverse_pallas", "add_salt",
-           "fma_peak")
+           "fma_peak", "rows_grad")
 SWEEP_MODES = {"traverse_sweep": "plain",  # K1's rows -> instances
                "traverse_sweep[emit_attrs]": "emit_attrs",
                "traverse_sweep[counters]": "counters"}
@@ -251,6 +278,15 @@ WAIT_S = 120.0  # bound on every wait for a viewer or worker
 VOLUME_WARPS = 4096  # warps of each 8,192-warp wave the replay walks
 TUNING_ROUNDS = 3
 TUNING_KS = (16, 32, 64)
+# K4 launches of one 512x512 b4 step: the material rows of each bounce
+# and the triangle rows of all but the last (tests/test_torch_rows.py
+# counts the same structure on the CPU); with soft edges one triangle
+# fetch more per bounce
+STEP_ROWS = 2 * BOUNCES - 1
+SOFT_STEP_ROWS = 3 * BOUNCES - 1
+ROWS_LANES = 262_144
+ROWS_CASES = {"material_2x11": (2, 11), "triangle_16130x19": (16130, 19),
+              "texels_65536x4": (65536, 4)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -391,24 +427,27 @@ def tie_rays(pos, pairs, seed: int = 6):
 
 def reset_launches() -> None:
     from dustraytracer_tpu_torch.ops import peaks as pk
+    from dustraytracer_tpu_torch.ops import rows as rw
     from dustraytracer_tpu_torch.ops import traverse_pallas as tp
     from dustraytracer_tpu_torch.ops import traverse_sweep as ts
 
     ts.LAUNCHES = ts.EMIT_LAUNCHES = ts.COUNT_LAUNCHES = 0
-    tp.LAUNCHES = pk.LAUNCHES = 0
+    tp.LAUNCHES = pk.LAUNCHES = rw.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     """Launches since reset_launches(), by kernel (add_salt runs only in
     the cache-reload tool's child processes, which report their own)."""
     from dustraytracer_tpu_torch.ops import peaks as pk
+    from dustraytracer_tpu_torch.ops import rows as rw
     from dustraytracer_tpu_torch.ops import traverse_pallas as tp
     from dustraytracer_tpu_torch.ops import traverse_sweep as ts
 
     return {"traverse_sweep": ts.LAUNCHES,
             "traverse_sweep[emit_attrs]": ts.EMIT_LAUNCHES,
             "traverse_sweep[counters]": ts.COUNT_LAUNCHES,
-            "traverse_pallas": tp.LAUNCHES, "fma_peak": pk.LAUNCHES}
+            "traverse_pallas": tp.LAUNCHES, "fma_peak": pk.LAUNCHES,
+            "rows_grad": rw.LAUNCHES}
 
 
 def compare_images(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -655,9 +694,11 @@ def pbr_phases(camera, lights, launches: dict) -> None:
     torch.cuda.synchronize()
     launches["soft_edges"] = read_launches()
     check(launches["soft_edges"] == {**no_kernel,
-                                     "traverse_sweep": 3 * BOUNCES},
+                                     "traverse_sweep": 3 * BOUNCES,
+                                     "rows_grad": SOFT_STEP_ROWS},
           f"soft edges launched {launches['soft_edges']}, expected "
-          f"{2 * BOUNCES} closest and {BOUNCES} any-hit")
+          f"{2 * BOUNCES} closest, {BOUNCES} any-hit and {SOFT_STEP_ROWS} "
+          "rows_grad")
     for k, g in grads.items():
         check(bool(torch.isfinite(g).all()), f"soft edges: {k} not finite")
     check(float(grads["tri_pos"].abs().max()) > 0.0,
@@ -917,7 +958,11 @@ def port_phases(scene, camera, lights, glb: Path, tmp: Path, env,
         got = read_launches()
         peak = torch.cuda.max_memory_allocated()
         tiles = int(name.split("_")[1]) if name != "plain" else 1
-        check(got == per_tile(tiles), f"train step {name} launched {got}")
+        if name == "plain":  # K4 per tile: one step's row fetches
+            step_rows = got["rows_grad"]
+            check(step_rows > 0, f"train step {name} launched {got}")
+        check(got == {**per_tile(tiles), "rows_grad": tiles * step_rows},
+              f"train step {name} launched {got}")
         check(bool(torch.isfinite(loss)), f"train step {name}: loss {loss}")
         launches[f"sharded_train_{name}"] = got
         res[name] = {"ms_per_step": median_ms(fn), "loss": float(loss),
@@ -994,15 +1039,21 @@ def port_phases(scene, camera, lights, glb: Path, tmp: Path, env,
         pairs.append((timer.ms, e0.elapsed_time(e1)))
     check(all(0.5 * ev <= t <= ev + 1e-3 for t, ev in pairs),
           f"DeviceTimer vs CUDA events: {pairs}")
-    with trace(str(tmp / "trace")):
-        plain()
-        torch.cuda.synchronize()
-    events = json.loads((tmp / "trace" / "trace.json").read_text())
-    kernels = sum(1 for ev in events["traceEvents"]
-                  if ev.get("cat") == "kernel")
-    check(kernels > 0, "trace holds no device kernel")
+    # the profiler has lost a whole window's kernels in some processes
+    # (grad_bench.device_ms): a trace without one is taken again, twice
+    for tries in range(1, 4):
+        with trace(str(tmp / "trace")):
+            plain()
+            torch.cuda.synchronize()
+        events = json.loads((tmp / "trace" / "trace.json").read_text())
+        kernels = sum(1 for ev in events["traceEvents"]
+                      if ev.get("cat") == "kernel")
+        if kernels:
+            break
+    check(kernels > 0, f"trace holds no device kernel in {tries} tries")
     emit("profiling", device_timer_ms=[t for t, _ in pairs],
-         cuda_events_ms=[ev for _, ev in pairs], trace_kernels=kernels)
+         cuda_events_ms=[ev for _, ev in pairs], trace_kernels=kernels,
+         trace_tries=tries)
 
     # viewer: the API roundtrip on the card
     vs = VIEWER_SIZE
@@ -1305,6 +1356,169 @@ def tools_phases(scene, env) -> None:
         rounds=TUNING_ROUNDS, seconds=res["tuning_seconds"])
 
 
+def _rows_case(grad, idx, n_rows) -> dict:
+    """K4 against its twin on one call: the error bound of the tests
+    (atol 2e-4 max|g| + rtol 2e-3) against the float32 twin and its
+    float64 run, two launches equal bit for bit; device ms of the wrapper
+    (sort and plan included), of its two kernels, of the twin and of the
+    library's torch.index_add; the bound from bytes."""
+    from dustraytracer_tpu_torch.ops.rows import (rows_grad,
+                                                  rows_grad_reference)
+    from dustraytracer_tpu_torch.tools.grad_bench import device_ms
+    from dustraytracer_tpu_torch.utils.roofline import bound_seconds, nbytes
+
+    got = rows_grad(grad, idx, n_rows)
+    again = rows_grad(grad, idx, n_rows)
+    twin = rows_grad_reference(grad, idx, n_rows)
+    twin64 = rows_grad_reference(grad.double(), idx, n_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"rows_grad {n_rows} rows: two launches "
+          "differ")
+    errs = {}
+    for name, ref in (("twin", twin), ("twin_float64", twin64)):
+        err = (got.double() - ref.double()).abs()
+        bound = 2e-4 * float(ref.abs().max()) + GRAD_RTOL * ref.abs().double()
+        check(bool((err <= bound).all()), f"rows_grad {n_rows} rows: beyond "
+              f"tolerance of the {name} by {float((err - bound).max())}")
+        errs[name] = float(err.max())
+    zeros = torch.zeros(n_rows, grad.shape[1], device=grad.device)
+    cols = grad.shape[1]
+    b_s, b_by = bound_seconds(grad.shape[0] * cols,
+                              nbytes(grad, idx) + n_rows * cols * 4)
+    return {"lanes": grad.shape[0], "rows": n_rows, "cols": cols,
+            "max_abs_err": errs["twin"],
+            "max_abs_err_vs_float64": errs["twin_float64"],
+            "ms": device_ms(lambda: rows_grad(grad, idx, n_rows)),
+            "kernels_ms": device_ms(lambda: rows_grad(grad, idx, n_rows),
+                                    "rows_grad_"),
+            "plain_ms": device_ms(
+                lambda: rows_grad_reference(grad, idx, n_rows)),
+            "library_ms": device_ms(
+                lambda: torch.index_add(zeros, 0, idx, grad)),
+            "bound_ms": b_s * 1e3, "bound_by": b_by}
+
+
+def rows_phase(scene, camera, lights, gset) -> dict:
+    """27. K4 on the calls one bench step makes (recorded) and on the three
+    stated shapes. Returns the per-launch means over the step's calls."""
+    from dustraytracer_tpu_torch.ops import rows as rw
+    from dustraytracer_tpu_torch.tools.grad_bench import grad_step
+
+    calls, orig = [], rw.rows_grad
+
+    def record(grad, idx, n_rows):
+        calls.append((grad.contiguous().clone(), idx.clone(), n_rows))
+        return orig(grad, idx, n_rows)
+
+    rw.rows_grad = record
+    try:
+        grad_step(scene, camera, lights, gset, WIDTH, HEIGHT)
+    finally:
+        rw.rows_grad = orig
+    torch.cuda.synchronize()
+    check(len(calls) == STEP_ROWS, f"rows: the step made {len(calls)} "
+          f"row-fetch backward calls, expected {STEP_ROWS}")
+    step = [_rows_case(*c) for c in calls]
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    shapes = {}
+    for name, (n_rows, cols) in ROWS_CASES.items():
+        if name.startswith("texels"):
+            idx = rng.integers(0, n_rows, ROWS_LANES)
+        else:  # ~40% of the lanes on row 0, as the clamped miss lanes
+            idx = np.where(rng.uniform(size=ROWS_LANES) < 0.4, 0,
+                           rng.integers(0, n_rows, ROWS_LANES))
+        grad = torch.from_numpy(rng.normal(size=(ROWS_LANES, cols))
+                                .astype(np.float32)).to(dev)
+        shapes[name] = _rows_case(grad, torch.from_numpy(idx).to(dev),
+                                  n_rows)
+    keys = ("ms", "kernels_ms", "plain_ms", "library_ms", "bound_ms")
+    per_launch = {k: float(np.mean([c[k] for c in step])) for k in keys}
+    per_launch.update(
+        max_abs_err=max(c["max_abs_err"] for c in step + list(
+            shapes.values())),
+        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step)
+        else "operations",
+        ms_per_step=sum(c["ms"] for c in step),
+        plain_ms_per_step=sum(c["plain_ms"] for c in step),
+        library_ms_per_step=sum(c["library_ms"] for c in step),
+        bound_ms_per_step=sum(c["bound_ms"] for c in step),
+        ms_by_case={k: c["ms"] for k, c in shapes.items()},
+        library_ms_by_case={k: c["library_ms"] for k, c in shapes.items()})
+    emit("rows", step_calls=step, shapes=shapes, per_launch=per_launch)
+    return {"per_launch": per_launch}
+
+
+def repeat_phase(scene, camera, lights, gset) -> None:
+    """28. Phase 7's step twice with each fetch: equal bit for bit."""
+    from dustraytracer_tpu_torch.tools.grad_bench import repeat_check
+
+    res = {}
+    for fetch in ("kernel", "gather"):
+        rec = repeat_check(scene, camera, lights,
+                           gset.replace(shade_fetch=fetch))
+        unequal = [k for k, g in rec["grads"].items() if not g["equal"]]
+        check(rec["loss_equal"] and not unequal,
+              f"repeat {fetch}: loss equal {rec['loss_equal']}, gradients "
+              f"not bit for bit: {unequal}")
+        res[fetch] = rec
+    emit("repeat", size=[WIDTH, HEIGHT], bounces=BOUNCES, **res)
+
+
+def bench_phase(env) -> None:
+    """29. tools/bench.py and a two-config tools/bench_scenes.py in fresh
+    processes, and tools/update_readme_perf.py on a copy of README.md."""
+    import shutil
+
+    from dustraytracer_tpu_torch.tools import update_readme_perf
+
+    def run(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0, f"{args[0]} rc {proc.returncode}:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    out, bench_s = run("dustraytracer_tpu_torch.tools.bench")
+    lines = out.strip().splitlines()
+    check(len(lines) == 1, f"tools.bench printed {len(lines)} lines")
+    res = json.loads(lines[0])
+    check(res["metric"] == "rays_per_sec_chip_fwd_bwd"
+          and res["vs_baseline"] is None and res["value"] > 0
+          and 0.0 < res["idle_pct"] < 100.0
+          and res["wave_order"] == "pixel"
+          and all(res.get(k) is not None for k in (
+              "ms_per_sample", "ms_per_sample_dispatched", "compile_s",
+              "device_ms_per_sample", "sol_pct", "vol_eff_pct")),
+          f"tools.bench line {res}")
+    with tempfile.TemporaryDirectory() as tmp:
+        report = Path(tmp) / "bench_report_torch.json"
+        _, scenes_s = run("dustraytracer_tpu_torch.tools.bench_scenes",
+                          "--configs", "cornell_256,suzanne_512",
+                          "--sol-reps", "1", "--out", str(report))
+        rep = json.loads(report.read_text())
+        by = {c["config"]: c for c in rep["configs"]}
+        check(sorted(by) == ["cornell_256", "suzanne_512"]
+              and all(c["fwdbwd_mrays_per_s"] > 0 for c in by.values())
+              and "sol_pct" in by["suzanne_512"]
+              and "sol_pct" not in by["cornell_256"],
+              f"bench_scenes report {rep}")
+        readme = Path(tmp) / "README.md"
+        shutil.copy(ROOT / "README.md", readme)
+        update_readme_perf.main(["--report", str(report), "--readme",
+                                 str(readme)])
+        text = readme.read_text()
+        jax_table = (ROOT / "README.md").read_text().split(
+            "<!-- BENCH_TABLE_END -->")[0]
+        check(text.startswith(jax_table)
+              and rep["nvidia_smi"] in text and "cornell_256" in text,
+              "update_readme_perf: table or JAX part wrong")
+    emit("bench", bench=res, bench_seconds=bench_s,
+         bench_scenes=rep["configs"], bench_scenes_seconds=scenes_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1328,6 +1542,7 @@ def main() -> int:
     from dustraytracer_tpu_torch.tools import repro_cache_hang
     from dustraytracer_tpu_torch.tools.ab_main_paths import sweep_waves
     from dustraytracer_tpu_torch.tools.grad_bench import (POSE,
+                                                          PROFILER_MISSES,
                                                           SMALL_SPHERE,
                                                           device_ms,
                                                           grad_step,
@@ -1351,7 +1566,8 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     # 1. build: one nvcc per source, all started together
-    srcs = ("traverse_sweep", "traverse_pallas", "add_salt", "peaks")
+    srcs = ("traverse_sweep", "traverse_pallas", "add_salt", "peaks",
+            "rows_grad")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(srcs)) as pool:
         recs = dict(zip(srcs, pool.map(load_library, srcs)))
@@ -1372,10 +1588,13 @@ def main() -> int:
                                      PALLAS_KERNEL, PALLAS_INSTANCE_OF)
     peak_regs = instance_registers(recs["peaks"]["log"], "fma_peak_kernel",
                                    {"": "fma_peak"})
+    rows_regs = instance_registers(recs["rows_grad"]["log"], "rows_grad_",
+                                   {"chunks": "chunks", "rows": "rows"})
     for src_name, regs, want in (
             ("traverse_sweep", sweep_regs, SWEEP_MODES.values()),
             ("traverse_pallas", pallas_regs, tp.NODE_TABLES),
-            ("peaks", peak_regs, ("fma_peak",))):
+            ("peaks", peak_regs, ("fma_peak",)),
+            ("rows_grad", rows_regs, ("chunks", "rows"))):
         check(sorted(regs) == sorted(want),
               f"ptxas lines for the {src_name} instances: {regs}")
         for inst, reg in regs.items():
@@ -1889,9 +2108,10 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     check(launches["grad"] == {**dict.fromkeys(launches["grad"], 0),
                                "traverse_sweep": BOUNCES,
-                               "traverse_sweep[emit_attrs]": BOUNCES},
+                               "traverse_sweep[emit_attrs]": BOUNCES,
+                               "rows_grad": STEP_ROWS},
           f"grad step launched {launches['grad']}, expected {BOUNCES} "
-          "plain and emit")
+          f"plain and emit, {STEP_ROWS} rows_grad")
     for k, g in grads.items():
         check(bool(torch.isfinite(g).all()), f"grad: {k} not finite")
     for k in ("mat_albedo", "sun_color", "sun_intensity", "sky_color",
@@ -1938,6 +2158,11 @@ def main() -> int:
          bounces=CPU_GRAD_BOUNCES,
          **grad_card_vs_cpu(scene, camera, lights, cset, scene_cpu))
 
+    # 27.-28. K4 against its twin on the step's own calls and the issue's
+    # shapes; the step twice, bit for bit
+    rows_res = rows_phase(scene, camera, lights, gset)
+    repeat_phase(scene, camera, lights, gset)
+
     # 11.-15. PBR and glass, K1 on continuation and refracted rays, soft
     # edges, float textures and the debug views, on the PBR sphere
     pbr_phases(camera, lights, launches)
@@ -1966,6 +2191,10 @@ def main() -> int:
     # 25.-26. the stage table and the tuning tools' short form
     tools_phases(scene, env)
 
+    # 29. the benchmark harness: tools/bench.py, two configs of the sweep, the
+    # README table
+    bench_phase(env)
+
     # 10. the build cache: four fresh processes build, reload, die in
     # nvcc and rebuild the add_salt kernel; each reports its launches
     reload = repro_cache_hang.run(timeout=240.0)
@@ -1993,7 +2222,7 @@ def main() -> int:
     main = {"traverse_sweep": "grad", "traverse_sweep[emit_attrs]": "grad",
             "traverse_sweep[counters]": "kernel_counters",
             "traverse_pallas": "kernel_pallas", "add_salt": "cache_reload",
-            "fma_peak": "roofline"}
+            "fma_peak": "roofline", "rows_grad": "grad"}
     src = "dustraytracer_tpu_torch/csrc/"
     rows = [
         {"name": "traverse_sweep", "source": src + "traverse_sweep.cu",
@@ -2035,7 +2264,12 @@ def main() -> int:
          "bound_by": salt_by, "library_ms": a_kid["plain_ms"]},
         {"name": "fma_peak", "source": src + "peaks.cu",
          "replaces": "dustraytracer_tpu/utils/roofline.py:413",
-         **fma_row, "registers": peak_regs["fma_peak"]["registers"]}]
+         **fma_row, "registers": peak_regs["fma_peak"]["registers"]},
+        {"name": "rows_grad", "source": src + "rows_grad.cu",
+         "replaces": "dustraytracer_tpu/render/integrator.py:50",
+         "also_replaces": "dustraytracer_tpu/render/texture.py:21",
+         **rows_res["per_launch"],
+         "registers": {k: r["registers"] for k, r in rows_regs.items()}}]
     by_wave = {
         "plain": {w: r["kernel_ms"] for w, r in results.items()},
         "emit_attrs": {w: r["kernel_emit_ms"] for w, r in emit_res.items()},
@@ -2055,6 +2289,7 @@ def main() -> int:
                                      for p, c in launches.items()
                                      if kernel in c})
     check([r["name"] for r in rows] == list(KERNELS), "kernel rows")
+    emit("timers", profiler_misses=PROFILER_MISSES)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

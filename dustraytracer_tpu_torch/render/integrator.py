@@ -42,6 +42,7 @@ import torch
 from dustraytracer_tpu_torch.ops.intersect import moller_trumbore
 from dustraytracer_tpu_torch.ops.rng import (random_float, random_in_ball,
                                              random_unit_vec3, seed_pixels)
+from dustraytracer_tpu_torch.ops.rows import gather_rows
 from dustraytracer_tpu_torch.ops.tonemap import (gamma_correct,
                                                  uncharted2_filmic)
 from dustraytracer_tpu_torch.ops.traverse import (_sample_alpha,
@@ -139,11 +140,13 @@ def _resolve_fetch(scene, settings: RenderSettings) -> str:
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] along dim 0. Differentiable gathers go through
-    index_select: its backward is an atomic index_add, where the backward
-    of table[idx] walks each run of equal indices serially, and here runs
-    are long (every ray of one material, every miss lane at triangle 0)."""
-    return table.index_select(0, idx.to(torch.int64))
+    """table[idx] along dim 0 by ops/rows.py::gather_rows: index_select
+    forward, and a backward (K4 on a card) that adds each row's
+    cotangents in an order fixed by (idx, lane), with no float atomics, so
+    the gradients repeat bit for bit. Runs are long here (every ray of one
+    material, every miss lane at triangle 0): the kernel splits them into
+    fixed chunks."""
+    return gather_rows(table, idx)
 
 
 def _fetch_material(scene, mats: torch.Tensor) -> dict:

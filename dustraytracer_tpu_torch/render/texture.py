@@ -4,13 +4,16 @@ repeat-wrapped UVs, from the (T, H, W, 4) texture stack.
 A u8 stack is decoded as (u8 / 255)^2, the reference's approximate
 sRGB -> linear; a float stack (`decode_textures`) holds linear values,
 read as they are, and is differentiable: the learnable-texture path of
-inverse rendering. Texels are fetched from the flat (T*H*W, 4) view by
-index_select, whose backward is an atomic index_add_ (the backward of
-`stack[t, y, x]` is serial on repeated texels)."""
+inverse rendering. Texels are fetched from the flat (T*H*W, 4) view: a
+float stack by ops/rows.py::gather_rows, whose backward (K4 on a card)
+adds each texel's cotangents in a fixed order, with no float atomics; a
+u8 stack, which takes no gradient, by index_select."""
 
 from __future__ import annotations
 
 import torch
+
+from dustraytracer_tpu_torch.ops.rows import gather_rows
 
 
 def _wrap(x: torch.Tensor) -> torch.Tensor:
@@ -32,9 +35,10 @@ def sample_texture(scene, tex_idx: torch.Tensor, uv: torch.Tensor,
     def fetch(xi, yi):
         xi = torch.clamp(xi, torch.zeros_like(xi), hw[..., 1] - 1)
         yi = torch.clamp(yi, torch.zeros_like(yi), hw[..., 0] - 1)
-        rgb = flat.index_select(0, (safe * hs + yi) * ws + xi)[:, :3]
+        ids = (safe * hs + yi) * ws + xi
         if stack.dtype != torch.uint8:
-            return rgb
+            return gather_rows(flat, ids)[:, :3]
+        rgb = flat.index_select(0, ids)[:, :3]
         rgb = rgb.to(torch.float32) / 255.0
         return rgb * rgb
 

@@ -15,14 +15,18 @@ Each section prints one JSON line; --out gets all of them:
            forward and backward ms, the device ms of a step
            (torch.profiler) in each round, rays/s, peak memory above the
            resident scene
-  repeat   the 128x64 step twice on the same inputs: are the loss and
-           the gradients equal bit for bit?
+  repeat   the 128x64 step twice on the same inputs, with the kernel and
+           with the gather fetch: are the loss and the gradients equal
+           bit for bit?
   profile  torch.profiler over one 128x64 step ("auto" fetch): device
            kernels and their summed time, the top kernels by device time,
            and the top aten/autograd ops by device and by host time
   gathers  the backward of one duplicated-index row gather at the step's
            shapes (262,144 rays; the 2-row material table, the padded
-           triangle table), table[idx] against table.index_select(0, idx)
+           triangle table): device ms (torch.profiler) of table[idx],
+           table.index_select(0, idx) and ops/rows.py::gather_rows (K4),
+           their largest differences, and whether two backward passes of
+           each are equal bit for bit
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 import time
 from collections import defaultdict
 from functools import partial
@@ -215,14 +220,15 @@ def glass_panes_doc():
 
 
 def grad_step(scene, camera, lights, settings, width: int, height: int, *,
-              wrt=GRAD_PARAMS, events=None):
+              wrt=GRAD_PARAMS, events=None, frame: int = 0):
     """The bench's gradient step (bench.py:73-80): the mean of one sample,
     differentiated with respect to the leaves named in `wrt` (albedo,
     emissive, every LightParams field, the camera position and the
     vertices by default; the others are constants). The vertices go in
     through Scene.replace, so the cluster and BVH refit runs in the step.
     `events`, three CUDA events, are recorded before the forward, between
-    forward and backward, and after the backward. Returns (loss,
+    forward and backward, and after the backward; `frame` is the
+    sample's frame index (its RNG stream). Returns (loss,
     {name: gradient}) over `wrt`; a leaf the image does not reach
     (emissive in reference shading) gets a zero gradient."""
     leaves = {"mat_albedo": scene.mat_albedo,
@@ -238,7 +244,7 @@ def grad_step(scene, camera, lights, settings, width: int, height: int, *,
                        tri_pos=leaves["tri_pos"])
     img = render_sample(sc, camera.replace(position=leaves["position"]),
                         lights.replace(**{k: leaves[k] for k in LIGHT_KEYS}),
-                        0, width=width, height=height, settings=settings)
+                        frame, width=width, height=height, settings=settings)
     loss = img.mean()
     if events:
         events[1].record()
@@ -265,6 +271,12 @@ def median_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+# one entry per device_ms call whose profiles all lost the kernels and
+# that was timed by CUDA events instead: {"name", "reps", "seen", "timer"}
+PROFILER_MISSES: list = []
+PROFILE_TRIES = 3
+
+
 def device_ms(fn, name: str | None = None, reps: int = 5) -> float:
     """Device time per call of fn(): the summed duration of the CUDA
     kernels it launched (those whose name contains `name`, if given)
@@ -273,13 +285,21 @@ def device_ms(fn, name: str | None = None, reps: int = 5) -> float:
     spends waiting for the launch. With a `name`, each call launches the
     same number of such kernels, so a count that `reps` does not divide
     means the profiler lost events: the window is profiled again, up to
-    three times."""
+    PROFILE_TRIES times.
+
+    The profiler can lose a process's kernels for good (no device kernel
+    in any try). Then the time is taken by CUDA events: the slope of
+    utils/roofline.py::device_seconds_per_call, the device time of every
+    kernel fn launches, or, for a fn that waits for the device and so
+    cannot be queued, the median span of one call (idle gaps included).
+    The call is appended to PROFILER_MISSES and named on stderr, so a
+    report can say which timer took its number."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -290,8 +310,29 @@ def device_ms(fn, name: str | None = None, reps: int = 5) -> float:
               and (name is None or name in e.name)]
         if us and (name is None or len(us) % reps == 0):
             return sum(us) / reps / 1e3
-    raise RuntimeError(f"the profiler saw {len(us)} device kernels "
-                       f"{name or ''} in {reps} calls of fn()")
+    return _events_ms(fn, name, reps, len(us))
+
+
+def _events_ms(fn, name: str | None, reps: int, seen: int) -> float:
+    """device_ms's CUDA-event timer, for a fn the profiler lost."""
+    from dustraytracer_tpu_torch.utils.roofline import \
+        device_seconds_per_call
+
+    try:
+        ms = 1e3 * device_seconds_per_call(lambda _i: fn(), strict=True)
+        timer = "device_seconds_per_call"
+    except RuntimeError as err:
+        if "could not queue" not in str(err) \
+                and "non-positive slope" not in str(err):
+            raise
+        ms, timer = median_ms(fn, reps), "median_ms"
+    PROFILER_MISSES.append({"name": name, "reps": reps, "seen": seen,
+                            "timer": timer})
+    print(f"device_ms: the profiler saw {seen} device kernels "
+          f"{name or ''} in {reps} calls of fn() in each of "
+          f"{PROFILE_TRIES} tries; timed by {timer}: {ms} ms",
+          file=sys.stderr)
+    return ms
 
 
 def _settings() -> RenderSettings:
@@ -365,17 +406,25 @@ def fetch_section(scene, camera, reps: int, dev, label: str) -> dict:
     return res
 
 
-def repeat_section(dev) -> dict:
-    scene, camera, lights, settings, _ = _setup(*SMOKE_SPHERE, dev)
-    settings = settings.replace(shade_fetch="kernel")
+def repeat_check(scene, camera, lights, settings) -> dict:
+    """The step (grad_step, every GRAD_PARAMS leaf) twice on the same
+    inputs: whether the loss and each gradient are equal bit for bit,
+    each gradient's largest difference and largest magnitude."""
     (l1, g1), (l2, g2) = (grad_step(scene, camera, lights, settings, WIDTH,
                                     HEIGHT) for _ in range(2))
-    return {"section": "repeat", "sphere": "%dx%d" % SMOKE_SPHERE,
-            "shade_fetch": "kernel", "loss_equal": bool(torch.equal(l1, l2)),
+    return {"shade_fetch": settings.shade_fetch,
+            "loss_equal": bool(torch.equal(l1, l2)),
             "grads": {k: {"equal": bool(torch.equal(g1[k], g2[k])),
                           "max_abs_diff": float((g1[k] - g2[k]).abs().max()),
                           "max_abs": float(g1[k].abs().max())}
                       for k in GRAD_PARAMS}}
+
+
+def repeat_section(dev, fetch: str = "kernel") -> dict:
+    scene, camera, lights, settings, _ = _setup(*SMOKE_SPHERE, dev)
+    return {"section": "repeat", "sphere": "%dx%d" % SMOKE_SPHERE,
+            **repeat_check(scene, camera, lights,
+                           settings.replace(shade_fetch=fetch))}
 
 
 def _self_device_us(avg) -> float:
@@ -426,6 +475,8 @@ def profile_section(dev, top: int = 15) -> dict:
 
 
 def gathers_section(n_tris: int, reps: int, dev) -> dict:
+    from dustraytracer_tpu_torch.ops.rows import gather_rows
+
     n = WIDTH * HEIGHT
     rng = np.random.default_rng(0)
     mat_idx = (rng.uniform(size=n) < 0.5).astype(np.int64)
@@ -434,24 +485,29 @@ def gathers_section(n_tris: int, reps: int, dev) -> dict:
                        rng.integers(0, n_tris, n))
     cases = {"material_2x11": (2, 11, mat_idx),
              f"triangle_{n_tris}x19": (n_tris, 19, tri_idx)}
+    fetches = {"getitem": lambda tab, idx: tab[idx],
+               "index_select": lambda tab, idx: tab.index_select(0, idx),
+               "gather_rows": gather_rows}
     res = {"section": "gathers", "rays": n}
     for name, (rows, cols, idx) in cases.items():
         tab = torch.rand(rows, cols, device=dev, requires_grad=True)
         idx = torch.from_numpy(idx).to(dev)
-        up = torch.ones(n, cols, device=dev)
-        grads = {}
-
-        def run(how):
-            tab.grad = None
-            out = tab[idx] if how == "getitem" else tab.index_select(0, idx)
-            out.backward(up)
-
+        up = torch.randn(n, cols, device=dev)
         res[name] = {}
-        for how in ("getitem", "index_select"):
-            res[name][f"{how}_ms"] = median_ms(partial(run, how), reps)
-            grads[how] = tab.grad.clone()
-        res[name]["max_abs_grad_diff"] = float(
-            (grads["getitem"] - grads["index_select"]).abs().max())
+        grads = {}
+        for how, fetch in fetches.items():
+            out = fetch(tab, idx)
+
+            def bwd():
+                return torch.autograd.grad(out, tab, up, retain_graph=True)
+
+            res[name][f"{how}_bwd_device_ms"] = device_ms(bwd, reps=reps)
+            (g1,), (g2,) = bwd(), bwd()
+            res[name][f"{how}_repeat_equal"] = bool(torch.equal(g1, g2))
+            grads[how] = g1
+        for how in ("getitem", "gather_rows"):
+            res[name][f"{how}_max_abs_grad_diff_vs_index_select"] = float(
+                (grads[how] - grads["index_select"]).abs().max())
     return res
 
 
@@ -484,7 +540,8 @@ def main(argv=None) -> int:
         scene, camera, _, _, build_s = _setup(n_lon, n_lat, dev)
         add({**fetch_section(scene, camera, REPS, dev, f"{n_lon}x{n_lat}"),
              "build_seconds": build_s})
-    add(repeat_section(dev))
+    for fetch in FETCHES:
+        add(repeat_section(dev, fetch))
     add(profile_section(dev))
     smoke = build_scene(sphere_doc(*SMOKE_SPHERE))
     add(gathers_section(int(smoke.tri_pos.shape[0]), REPS, dev))

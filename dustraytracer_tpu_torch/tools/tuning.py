@@ -17,7 +17,8 @@ Timers, all on the card (each raises without CUDA):
   wall_ms      CUDA events around one call: the device's timeline, host
                gaps included
   profiled_ms  the summed duration of every device kernel of one call,
-               by torch.profiler (grad_bench.device_ms)
+               by torch.profiler (grad_bench.device_ms); `profiled` also
+               names the timer
   slope_ms     utils/roofline.device_seconds_per_call: the slope between
                two counts of back-to-back calls queued while the device
                holds still; device time, for calls without a host sync
@@ -211,9 +212,20 @@ def wall_ms(fn) -> float:
 
 def profiled_ms(fn, reps: int = 1) -> float:
     """Summed device-kernel ms per fn() call, torch.profiler."""
-    from dustraytracer_tpu_torch.tools.grad_bench import device_ms
+    return profiled(fn, reps)[0]
 
-    return device_ms(fn, reps=reps)
+
+def profiled(fn, reps: int = 1) -> tuple[float, str]:
+    """(profiled_ms, the timer that took it): "torch.profiler", or the
+    CUDA-event timer grad_bench.device_ms fell back to when the profiler
+    lost the kernels."""
+    from dustraytracer_tpu_torch.tools import grad_bench
+
+    misses = len(grad_bench.PROFILER_MISSES)
+    ms = grad_bench.device_ms(fn, reps=reps)
+    if len(grad_bench.PROFILER_MISSES) > misses:
+        return ms, grad_bench.PROFILER_MISSES[-1]["timer"]
+    return ms, "torch.profiler"
 
 
 def slope_ms(fn, n_hi: int = 8) -> float | None:

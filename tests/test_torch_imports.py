@@ -53,6 +53,10 @@ def test_port_imports_without_jax():
         "import dustraytracer_tpu_torch.ops.traverse_pallas\n"
         "import dustraytracer_tpu_torch.utils.roofline\n"
         "import dustraytracer_tpu_torch.ops.peaks\n"
+        "import dustraytracer_tpu_torch.ops.rows\n"
+        "import dustraytracer_tpu_torch.tools.bench\n"
+        "import dustraytracer_tpu_torch.tools.bench_scenes\n"
+        "import dustraytracer_tpu_torch.tools.update_readme_perf\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dustraytracer_tpu' or m.startswith('dustraytracer_tpu.')"

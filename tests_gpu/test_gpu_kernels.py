@@ -3,8 +3,11 @@ bit for bit, on chip_smoke.py's seeded 2,048-triangle soup at K = 32 with
 duplicated triangles (exact t ties inside a cluster and across two): K1
 (csrc/traverse_sweep.cu) in its plain, any-hit, emit_attrs and counters
 calls, K2 (csrc/traverse_pallas.cu) in both node-table instances, closest
-and any-hit, and K3 (csrc/add_salt.cu) through the build-cache tool's
-child. chip_smoke.py keeps its own checks (phases 3, 3t, 3p, 10)."""
+and any-hit, K3 (csrc/add_salt.cu) through the build-cache tool's child,
+and K4 (csrc/rows_grad.cu, the row fetch's backward) against its twin at
+the bench step's shapes, two launches bit for bit; and the bench step
+itself twice, loss and gradients bit for bit, with each shading fetch.
+chip_smoke.py keeps its own checks (phases 3, 3t, 3p, 10, 27, 28)."""
 
 import numpy as np
 import pytest
@@ -83,3 +86,65 @@ def test_add_salt_kernel_matches_twin(tmp_path):
     assert res["salt"] == 0.3125
     assert res["ok"] and res["max_abs_err"] == 0.0, res
     assert res["launches"] == 1
+
+
+# K4 at the bench step's shapes: 262,144 lanes into the material table and
+# the bench sphere's triangle table (~40% of the lanes on row 0, as the
+# clamped miss lanes), and into a 256x256 float texel stack
+ROW_LANES = 262_144
+
+
+@pytest.mark.parametrize("n_rows,cols", [(2, 11), (16130, 19), (65536, 4)],
+                         ids=["material", "triangles", "texels"])
+def test_rows_grad_kernel_matches_twin(n_rows, cols):
+    from dustraytracer_tpu_torch.ops import rows
+
+    rng = np.random.default_rng(n_rows)
+    if n_rows == 65536:
+        idx = rng.integers(0, n_rows, ROW_LANES)
+    else:
+        idx = np.where(rng.uniform(size=ROW_LANES) < 0.4, 0,
+                       rng.integers(0, n_rows, ROW_LANES))
+    idx = torch.from_numpy(idx).to("cuda")
+    grad = torch.from_numpy(rng.normal(size=(ROW_LANES, cols))
+                            .astype(np.float32)).to("cuda")
+    before = rows.LAUNCHES
+    got = rows.rows_grad(grad, idx, n_rows)
+    again = rows.rows_grad(grad, idx, n_rows)
+    torch.cuda.synchronize()
+    assert rows.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    # the tests' gradient tolerance: atol 2e-4 max|g|, rtol 2e-3
+    for ref in (rows.rows_grad_reference(grad, idx, n_rows),
+                rows.rows_grad_reference(grad.double(), idx, n_rows)):
+        ref = ref.double()
+        bound = 2e-4 * float(ref.abs().max()) + 2e-3 * ref.abs()
+        assert bool(((got.double() - ref).abs() <= bound).all())
+
+
+@pytest.fixture(scope="module")
+def bench_sphere():
+    from dustraytracer_tpu_torch.scene.camera import make_camera
+    from dustraytracer_tpu_torch.scene.scene import build_scene
+    from dustraytracer_tpu_torch.scene.settings import (LightParams,
+                                                        RenderSettings)
+    from dustraytracer_tpu_torch.tools.grad_bench import POSE, sphere_doc
+
+    settings = RenderSettings(bounces=4, enable_tonemap=False,
+                              enable_gamma=False)
+    return (build_scene(sphere_doc()).to("cuda"),
+            make_camera(**POSE, device="cuda"),
+            LightParams.from_settings(settings, device="cuda"), settings)
+
+
+@pytest.mark.parametrize("fetch", ["kernel", "gather"])
+def test_bench_step_repeats_bit_for_bit(bench_sphere, fetch):
+    """The 512x512 b4 bench step twice on the same inputs: the loss and
+    every gradient equal bit for bit (no float atomics in the backward)."""
+    from dustraytracer_tpu_torch.tools.grad_bench import repeat_check
+
+    scene, camera, lights, settings = bench_sphere
+    rec = repeat_check(scene, camera, lights,
+                       settings.replace(shade_fetch=fetch))
+    assert rec["loss_equal"], rec
+    assert all(g["equal"] for g in rec["grads"].values()), rec["grads"]

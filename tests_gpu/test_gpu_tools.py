@@ -2,7 +2,8 @@
 bisect_segment, retune_fetch, bench_anyhit_sort, bench_cluster_k,
 attr_sweep) in their smallest form on the card, on the 4k stand-in: each
 gives its rows with finite, positive times, and the sorted and bare
-tracers, and K1 at each K and its twin, agree bit for bit."""
+tracers, and K1 at each K and its twin, agree bit for bit. The benchmark
+line (tools/bench.py) prints one JSON object."""
 
 import json
 import math
@@ -111,3 +112,17 @@ def test_attr_sweep(tmp_path, capsys):
                                                  "shadow_anyhit"]
     for r in attrs:
         assert _positive(r["device_ms"], r["sol_raw_pct"]), r
+
+
+def test_bench_prints_one_line(capsys):
+    from dustraytracer_tpu_torch.tools import bench
+
+    assert bench.main([]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert res["metric"] == "rays_per_sec_chip_fwd_bwd"
+    assert res["vs_baseline"] is None and res["wave_order"] == "pixel"
+    assert _positive(res["value"], res["ms_per_sample"],
+                     res["device_ms_per_sample"], res["sol_raw_pct"],
+                     res["vol_eff_pct"])
