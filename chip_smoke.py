@@ -13,8 +13,8 @@ bundled scene, generated from a seed:
                add_salt.cu, peaks.cu and rows_grad.cu for sm_90a, started
                together; ptxas lines, and the registers of each instance
                of the sweep kernel, of the base-threading kernel, of the
-               FMA peak kernel and of the row-fetch backward's two passes
-               (none may spill)
+               FMA peak kernel and of the row-fetch backward's eleven
+               kernels (none may spill)
   2. scene     a displaced lat-long sphere (128 x 64 segments) over a
                textured ground (tools/grad_bench.py::sphere_doc), built
                by the port's build_scene; also its 16 x 8 variant (226
@@ -184,16 +184,24 @@ on the bench sphere, in one fresh process:
 Phases 27-28 follow phase 8, on the bench sphere; phase 29 follows 26:
 
  27. rows      K4 (csrc/rows_grad.cu, the row fetch's deterministic
-               backward) against its twin (index_add_ into zeros) on the
-               calls of one bench step, recorded, and on the issue's three
-               shapes (262,144 lanes into the 2 x 11 material table and
-               the 16,130 x 19 triangle table with ~40% of the lanes on
-               row 0, and into a 256 x 256 float texel stack): within
-               atol 2e-4 max|g| + rtol 2e-3 of the twin and of its float64
-               run, two launches equal bit for bit; device ms of the
-               wrapper (sort and plan included), of the two kernels
-               alone, of the twin and of the library's torch.index_add;
-               the bound from bytes
+               backward) on the calls of one bench step, recorded, on the
+               timed shapes (262,144 lanes into the 2 x 11 material table,
+               the 16,130 x 19 triangle table and its 28-column
+               smooth-normal variant with ~40% of the lanes on row 0, and
+               a 256 x 256 float texel stack) and on edge shapes (one row,
+               every lane on one row, the upper half of the rows empty,
+               every row empty but the last, fewer lanes than a sort tile
+               or a chunk, 600,000 lanes): within atol 2e-4 max|g|
+               + rtol 2e-3 of the twin (index_add_ into zeros) and of its
+               float64 run, two launches equal bit for bit, the plan
+               kernels' perm / starts equal to the plain plan's, a strided
+               cotangent equal to the contiguous one, no host sync under
+               set_sync_debug_mode("error"), a CUDA-graph replay equal to
+               an eager launch; the step must take both instances
+               (plan-free and planned); device ms of the wrapper, of its
+               kernels alone, of the twin and of the library's
+               torch.index_add, kernels per call, the bound from bytes,
+               resident blocks per SM of each kernel
  28. repeat    phase 7's step twice with the kernel fetch and twice with
                the gather fetch: loss and every gradient equal bit for bit
  29. bench     tools/bench.py in a fresh process (one JSON line, the bench
@@ -261,6 +269,13 @@ SWEEP_MODES = {"traverse_sweep": "plain",  # K1's rows -> instances
 INSTANCE_OF = {"ILb0ELb0E": "plain", "ILb1ELb0E": "emit_attrs",
                "ILb0ELb1E": "counters"}
 PALLAS_INSTANCE_OF = {"ILb1E": "shared", "ILb0E": "global"}
+# K4's kernels (csrc/rows_grad.cu) by the mangled name's tail; the values
+# are ops/rows.py::KERNELS
+ROWS_INSTANCE_OF = {"histIl": "hist_i64", "histIi": "hist_i32",
+                    "scan": "scan", "scatterIl": "scatter_i64",
+                    "scatterIi": "scatter_i32", "starts": "starts",
+                    "heads": "heads", "chunks": "chunks", "rows": "rows",
+                    "tiles": "tiles", "tile_sum": "tile_sum"}
 TIE_KS = (8, 16, 32, 64)
 # the sphere re-clustered at this K has 2,017 nodes: past K2's
 # shared-memory node table limit
@@ -285,8 +300,30 @@ TUNING_KS = (16, 32, 64)
 STEP_ROWS = 2 * BOUNCES - 1
 SOFT_STEP_ROWS = 3 * BOUNCES - 1
 ROWS_LANES = 262_144
-ROWS_CASES = {"material_2x11": (2, 11), "triangle_16130x19": (16130, 19),
-              "texels_65536x4": (65536, 4)}
+# K4's timed shapes (rows, columns, lanes, ids; chip_smoke.rows_inputs):
+# the material table and the bench sphere's triangle table with ~40% of
+# the lanes on row 0 (the clamped miss lanes), a 256 x 256 float texel
+# stack, and the smooth-normal fetch's 28 columns
+ROWS_CASES = {
+    "material_2x11": (2, 11, ROWS_LANES, "miss_heavy"),
+    "triangle_16130x19": (16130, 19, ROWS_LANES, "miss_heavy"),
+    "texels_65536x4": (65536, 4, ROWS_LANES, "spread"),
+    "normals_16130x28": (16130, 28, ROWS_LANES, "miss_heavy")}
+# and its edge shapes, checked only: one row (plan-free, and planned with
+# 100 columns), every lane on one row, the upper half of the rows empty
+# (as the far side of the bench sphere), every row empty but the last,
+# fewer lanes than one sort tile and than one chunk, and more sort blocks
+# than the digit scan holds in registers (past 524,288 lanes)
+ROWS_EDGE_CASES = {
+    "one_row_1x4": (1, 4, ROWS_LANES, "spread"),
+    "one_row_1x100": (1, 100, 4096, "spread"),
+    "one_row_of_300x19": (300, 19, ROWS_LANES, "one_row"),
+    "near_half_16130x19": (16130, 19, ROWS_LANES, "near_half"),
+    "last_row_only_300x19": (300, 19, ROWS_LANES, "last_row_only"),
+    "below_one_tile_300x19": (300, 19, 1000, "spread"),
+    "below_one_chunk_70000x4": (70000, 4, 37, "spread"),
+    "below_one_tile_2x11": (2, 11, 5, "spread"),
+    "past_scan_registers_16130x4": (16130, 4, 600_000, "spread")}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1356,51 +1393,142 @@ def tools_phases(scene, env) -> None:
         rounds=TUNING_ROUNDS, seconds=res["tuning_seconds"])
 
 
+def rows_inputs(n_rows: int, cols: int, lanes: int, ids: str, seed: int):
+    """A seeded K4 call on the card: ids "spread" uniform over the rows,
+    "miss_heavy" ~40% on row 0 (the clamped miss lanes), "near_half" the
+    same with the upper half of the rows empty, "one_row" all on
+    the middle row, "last_row_only" every row empty but the last; a
+    normal cotangent (lanes, cols) float32."""
+    rng = np.random.default_rng(seed)
+    if ids == "spread":
+        idx = rng.integers(0, n_rows, lanes)
+    elif ids == "miss_heavy":
+        idx = np.where(rng.uniform(size=lanes) < 0.4, 0,
+                       rng.integers(0, n_rows, lanes))
+    elif ids == "near_half":  # the step's triangles: the far half unhit
+        idx = np.where(rng.uniform(size=lanes) < 0.4, 0,
+                       rng.integers(0, n_rows // 2, lanes))
+    elif ids == "one_row":
+        idx = np.full(lanes, n_rows // 2)
+    else:
+        idx = np.full(lanes, n_rows - 1)
+    dev = torch.device("cuda")
+    grad = torch.from_numpy(rng.normal(size=(lanes, cols))
+                            .astype(np.float32)).to(dev)
+    return grad, torch.from_numpy(idx.astype(np.int64)).to(dev), n_rows
+
+
+def check_rows_kernel(grad, idx, n_rows) -> dict:
+    """K4's checks on one call: the instance the shapes pick; for the
+    planned one, the plan kernels' perm and starts equal to the plain
+    plan's as integers; for the plan-free one, whether it equals its
+    float32 replay bit for bit; within atol 2e-4 max|g| + rtol 2e-3 of the
+    float32 twin and of its float64 run; two launches equal bit for bit;
+    a column slice of a wider cotangent equal to the contiguous one; no
+    host sync under set_sync_debug_mode("error"); a launch captured in a
+    CUDA graph and replayed equal to an eager one. Raises on a failure."""
+    from dustraytracer_tpu_torch.ops import rows as rw
+
+    n, cols = grad.shape
+    what = f"rows_grad {n} lanes into {n_rows} x {cols}"
+    got = rw.rows_grad(grad, idx, n_rows)
+    again = rw.rows_grad(grad, idx, n_rows)
+    twin = rw.rows_grad_reference(grad, idx, n_rows)
+    twin64 = rw.rows_grad_reference(grad.double(), idx, n_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{what}: two launches differ")
+    res = {"lanes": n, "rows": n_rows, "cols": cols,
+           "instance": "plan_free" if rw.is_small(n_rows, cols)
+           else "planned"}
+    for name, ref in (("twin", twin), ("twin_float64", twin64)):
+        err = (got.double() - ref.double()).abs()
+        bound = 2e-4 * float(ref.abs().max()) + GRAD_RTOL * ref.abs().double()
+        check(bool((err <= bound).all()), f"{what}: beyond tolerance of "
+              f"the {name} by {float((err - bound).max())}")
+        res["max_abs_err" if name == "twin" else "max_abs_err_vs_float64"] \
+            = float(err.max())
+    if res["instance"] == "planned":
+        perm, starts = rw.plan_kernel(idx, n_rows)
+        want = rw.plan(idx, n_rows)
+        check(torch.equal(perm, want[0]) and torch.equal(starts, want[1]),
+              f"{what}: the plan kernels' perm / starts differ from the "
+              "plain plan's")
+        res["plan_equal"] = True
+    else:
+        replay = rw.rows_grad_small_replay(grad.cpu(), idx.cpu(), n_rows)
+        res["replay_bit_equal"] = bool(torch.equal(got.cpu(), replay))
+    wide = torch.zeros(n, cols + 3, device=grad.device)
+    wide[:, 1:1 + cols] = grad
+    check(torch.equal(rw.rows_grad(wide[:, 1:1 + cols], idx, n_rows), got),
+          f"{what}: a strided cotangent differs from the contiguous one")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rw.rows_grad(grad, idx, n_rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rw.rows_grad(grad, idx, n_rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = rw.rows_grad(grad, idx, n_rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(captured, got), f"{what}: the graph's replay differs "
+          "from an eager launch")
+    res.update(strided_equal=True, no_sync=True, graph_equal=True)
+    return res
+
+
+def _kernels_per_call(fn) -> int:
+    """Device kernels of csrc/rows_grad.cu that one call of fn launches
+    (torch.profiler; 0 where it lost the events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and "rows_grad_" in e.name)
+
+
 def _rows_case(grad, idx, n_rows) -> dict:
-    """K4 against its twin on one call: the error bound of the tests
-    (atol 2e-4 max|g| + rtol 2e-3) against the float32 twin and its
-    float64 run, two launches equal bit for bit; device ms of the wrapper
-    (sort and plan included), of its two kernels, of the twin and of the
-    library's torch.index_add; the bound from bytes."""
+    """K4 on one call: check_rows_kernel's checks, then device ms of the
+    wrapper (plan included), of its kernels alone, of the twin and of the
+    library's torch.index_add, the kernels one call launches, and the
+    bound from bytes."""
     from dustraytracer_tpu_torch.ops.rows import (rows_grad,
                                                   rows_grad_reference)
     from dustraytracer_tpu_torch.tools.grad_bench import device_ms
     from dustraytracer_tpu_torch.utils.roofline import bound_seconds, nbytes
 
-    got = rows_grad(grad, idx, n_rows)
-    again = rows_grad(grad, idx, n_rows)
-    twin = rows_grad_reference(grad, idx, n_rows)
-    twin64 = rows_grad_reference(grad.double(), idx, n_rows)
-    torch.cuda.synchronize()
-    check(torch.equal(got, again), f"rows_grad {n_rows} rows: two launches "
-          "differ")
-    errs = {}
-    for name, ref in (("twin", twin), ("twin_float64", twin64)):
-        err = (got.double() - ref.double()).abs()
-        bound = 2e-4 * float(ref.abs().max()) + GRAD_RTOL * ref.abs().double()
-        check(bool((err <= bound).all()), f"rows_grad {n_rows} rows: beyond "
-              f"tolerance of the {name} by {float((err - bound).max())}")
-        errs[name] = float(err.max())
+    res = check_rows_kernel(grad, idx, n_rows)
     zeros = torch.zeros(n_rows, grad.shape[1], device=grad.device)
     cols = grad.shape[1]
     b_s, b_by = bound_seconds(grad.shape[0] * cols,
                               nbytes(grad, idx) + n_rows * cols * 4)
-    return {"lanes": grad.shape[0], "rows": n_rows, "cols": cols,
-            "max_abs_err": errs["twin"],
-            "max_abs_err_vs_float64": errs["twin_float64"],
-            "ms": device_ms(lambda: rows_grad(grad, idx, n_rows)),
-            "kernels_ms": device_ms(lambda: rows_grad(grad, idx, n_rows),
-                                    "rows_grad_"),
-            "plain_ms": device_ms(
-                lambda: rows_grad_reference(grad, idx, n_rows)),
-            "library_ms": device_ms(
-                lambda: torch.index_add(zeros, 0, idx, grad)),
-            "bound_ms": b_s * 1e3, "bound_by": b_by}
+    run = lambda: rows_grad(grad, idx, n_rows)  # noqa: E731
+    res.update(
+        ms=device_ms(run), kernels_ms=device_ms(run, "rows_grad_"),
+        kernels_per_call=_kernels_per_call(run),
+        plain_ms=device_ms(lambda: rows_grad_reference(grad, idx, n_rows)),
+        library_ms=device_ms(lambda: torch.index_add(zeros, 0, idx, grad)),
+        bound_ms=b_s * 1e3, bound_by=b_by)
+    return res
 
 
 def rows_phase(scene, camera, lights, gset) -> dict:
-    """27. K4 on the calls one bench step makes (recorded) and on the three
-    stated shapes. Returns the per-launch means over the step's calls."""
+    """27. K4 on the calls one bench step makes (recorded), on the stated
+    shapes (timed) and on the edge shapes (checked). Returns the
+    per-launch means over the step's calls."""
     from dustraytracer_tpu_torch.ops import rows as rw
     from dustraytracer_tpu_torch.tools.grad_bench import grad_step
 
@@ -1419,33 +1547,34 @@ def rows_phase(scene, camera, lights, gset) -> dict:
     check(len(calls) == STEP_ROWS, f"rows: the step made {len(calls)} "
           f"row-fetch backward calls, expected {STEP_ROWS}")
     step = [_rows_case(*c) for c in calls]
-    rng = np.random.default_rng(11)
-    dev = torch.device("cuda")
-    shapes = {}
-    for name, (n_rows, cols) in ROWS_CASES.items():
-        if name.startswith("texels"):
-            idx = rng.integers(0, n_rows, ROWS_LANES)
-        else:  # ~40% of the lanes on row 0, as the clamped miss lanes
-            idx = np.where(rng.uniform(size=ROWS_LANES) < 0.4, 0,
-                           rng.integers(0, n_rows, ROWS_LANES))
-        grad = torch.from_numpy(rng.normal(size=(ROWS_LANES, cols))
-                                .astype(np.float32)).to(dev)
-        shapes[name] = _rows_case(grad, torch.from_numpy(idx).to(dev),
-                                  n_rows)
+    check(any(c["instance"] == "plan_free" for c in step)
+          and any(c["instance"] == "planned" for c in step),
+          "rows: the step's calls did not take both instances")
+    shapes = {name: _rows_case(*rows_inputs(*case, seed=11 + i))
+              for i, (name, case) in enumerate(ROWS_CASES.items())}
+    edges = {name: check_rows_kernel(*rows_inputs(*case, seed=31 + i))
+             for i, (name, case) in enumerate(ROWS_EDGE_CASES.items())}
     keys = ("ms", "kernels_ms", "plain_ms", "library_ms", "bound_ms")
     per_launch = {k: float(np.mean([c[k] for c in step])) for k in keys}
     per_launch.update(
         max_abs_err=max(c["max_abs_err"] for c in step + list(
-            shapes.values())),
+            shapes.values()) + list(edges.values())),
         bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step)
         else "operations",
         ms_per_step=sum(c["ms"] for c in step),
         plain_ms_per_step=sum(c["plain_ms"] for c in step),
         library_ms_per_step=sum(c["library_ms"] for c in step),
         bound_ms_per_step=sum(c["bound_ms"] for c in step),
+        kernels_per_call={c["instance"]: c["kernels_per_call"] for c in step},
         ms_by_case={k: c["ms"] for k, c in shapes.items()},
-        library_ms_by_case={k: c["library_ms"] for k, c in shapes.items()})
-    emit("rows", step_calls=step, shapes=shapes, per_launch=per_launch)
+        kernels_ms_by_case={k: c["kernels_ms"] for k, c in shapes.items()},
+        bound_ms_by_case={k: c["bound_ms"] for k, c in shapes.items()},
+        library_ms_by_case={k: c["library_ms"] for k, c in shapes.items()},
+        instance_by_case={k: c["instance"] for k, c in {
+            **shapes, **edges}.items()},
+        blocks_per_sm=rw.occupancy())
+    emit("rows", step_calls=step, shapes=shapes, edges=edges,
+         per_launch=per_launch)
     return {"per_launch": per_launch}
 
 
@@ -1589,12 +1718,12 @@ def main() -> int:
     peak_regs = instance_registers(recs["peaks"]["log"], "fma_peak_kernel",
                                    {"": "fma_peak"})
     rows_regs = instance_registers(recs["rows_grad"]["log"], "rows_grad_",
-                                   {"chunks": "chunks", "rows": "rows"})
+                                   ROWS_INSTANCE_OF)
     for src_name, regs, want in (
             ("traverse_sweep", sweep_regs, SWEEP_MODES.values()),
             ("traverse_pallas", pallas_regs, tp.NODE_TABLES),
             ("peaks", peak_regs, ("fma_peak",)),
-            ("rows_grad", rows_regs, ("chunks", "rows"))):
+            ("rows_grad", rows_regs, ROWS_INSTANCE_OF.values())):
         check(sorted(regs) == sorted(want),
               f"ptxas lines for the {src_name} instances: {regs}")
         for inst, reg in regs.items():
@@ -2261,7 +2390,8 @@ def main() -> int:
          "replaces": "tools/repro_cache_hang.py:52",
          "max_abs_err": a_kid["max_abs_err"], "ms": a_kid["ms"],
          "plain_ms": a_kid["plain_ms"], "bound_ms": salt_bound * 1e3,
-         "bound_by": salt_by, "library_ms": a_kid["plain_ms"]},
+         "bound_by": salt_by, "library_ms": a_kid["plain_ms"],
+         "blocks_per_sm": a_kid["blocks_per_sm"]},
         {"name": "fma_peak", "source": src + "peaks.cu",
          "replaces": "dustraytracer_tpu/utils/roofline.py:413",
          **fma_row, "registers": peak_regs["fma_peak"]["registers"]},

@@ -41,6 +41,13 @@ extern "C" int drt_add_salt(const float* x, float* o, int n, void* stream) {
 
 extern "C" float drt_add_salt_value() { return SALT; }
 
+// Resident blocks per SM of the kernel (the CUDA occupancy calculator's
+// figure); returns the CUDA error code (0 = answered).
+extern "C" int drt_add_salt_occupancy(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, add_salt_kernel, kBlock, 0);
+}
+
 extern "C" const char* drt_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -142,10 +142,11 @@ def _resolve_fetch(scene, settings: RenderSettings) -> str:
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx] along dim 0 by ops/rows.py::gather_rows: index_select
     forward, and a backward (K4 on a card) that adds each row's
-    cotangents in an order fixed by (idx, lane), with no float atomics, so
-    the gradients repeat bit for bit. Runs are long here (every ray of one
-    material, every miss lane at triangle 0): the kernel splits them into
-    fixed chunks."""
+    cotangents in an order fixed by (idx, lane) and the shapes, with no
+    float atomics, so the gradients repeat bit for bit. The material
+    table is small enough for K4's plan-free instance (fixed tiles of
+    lanes, no sort); the triangle rows take the planned one, whose long
+    runs (every miss lane at triangle 0) are cut into fixed chunks."""
     return gather_rows(table, idx)
 
 

@@ -5,9 +5,11 @@ A u8 stack is decoded as (u8 / 255)^2, the reference's approximate
 sRGB -> linear; a float stack (`decode_textures`) holds linear values,
 read as they are, and is differentiable: the learnable-texture path of
 inverse rendering. Texels are fetched from the flat (T*H*W, 4) view: a
-float stack by ops/rows.py::gather_rows, whose backward (K4 on a card)
-adds each texel's cotangents in a fixed order, with no float atomics; a
-u8 stack, which takes no gradient, by index_select."""
+float stack by ops/rows.py::gather_rows, whose backward (K4 on a card,
+its planned instance: a radix-sort plan of the texel ids, then fixed
+chunks of each texel's lanes) adds each texel's cotangents in a fixed
+order, with no float atomics; a u8 stack, which takes no gradient, by
+index_select."""
 
 from __future__ import annotations
 

@@ -164,14 +164,43 @@ METRICS = ("plain_primary_ms", "plain_bounce_ms", "plain_anyhit_ms",
            "grad_ms_per_step")
 
 
-def _measure(tree: Path) -> dict:
+def measure_in(tree: Path, child: str, timeout: float = 600) -> dict:
+    """Run the measuring source `child` in a fresh process with `tree` on
+    its path; return the JSON object of its last line."""
     env = dict(os.environ, PYTHONPATH=str(tree))
-    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, env=env,
-                          capture_output=True, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-c", child], cwd=tree, env=env,
+                          capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"measurement in {tree} failed:\n"
                            f"{proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def in_turns(other: Path, measure, turns: int, metrics) -> dict:
+    """measure(tree) in the order other, this, this, other, then this,
+    other, other, this, ...; returns {"card", "other", "runs", "stats"}
+    with each side's median, min and max of every metric."""
+    trees = {"other": Path(other).resolve(), "this": ROOT}
+    runs = []
+    orders = (("other", "this", "this", "other"),
+              ("this", "other", "other", "this"))
+    for turn in range(turns):
+        for side in orders[turn % 2]:
+            rec = {"side": side, **measure(trees[side])}
+            runs.append(rec)
+            print(json.dumps(rec), flush=True)
+    stats = {}
+    for side in trees:
+        stats[side] = {}
+        for m in metrics:
+            vals = [r[m] for r in runs if r["side"] == side]
+            stats[side][m] = {"median": statistics.median(vals),
+                              "min": min(vals), "max": max(vals)}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    return {"card": smi, "other": str(trees["other"]), "runs": runs,
+            "stats": stats}
 
 
 def main(argv=None) -> int:
@@ -181,27 +210,8 @@ def main(argv=None) -> int:
     p.add_argument("--turns", type=int, default=2)
     p.add_argument("--out", help="also write the JSON here")
     args = p.parse_args(argv)
-    trees = {"other": Path(args.other).resolve(), "this": ROOT}
-    runs = []
-    orders = (("other", "this", "this", "other"),
-              ("this", "other", "other", "this"))
-    for turn in range(args.turns):
-        for side in orders[turn % 2]:
-            rec = {"side": side, **_measure(trees[side])}
-            runs.append(rec)
-            print(json.dumps(rec), flush=True)
-    stats = {}
-    for side in trees:
-        stats[side] = {}
-        for m in METRICS:
-            vals = [r[m] for r in runs if r["side"] == side]
-            stats[side][m] = {"median": statistics.median(vals),
-                              "min": min(vals), "max": max(vals)}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    res = {"card": smi, "other": str(trees["other"]), "runs": runs,
-           "stats": stats}
+    res = in_turns(args.other, lambda tree: measure_in(tree, CHILD),
+                   args.turns, METRICS)
     print(json.dumps(res))
     if args.out:
         Path(args.out).write_text(json.dumps(res, indent=1))

@@ -84,6 +84,8 @@ def child(src: Path, build_dir: Path) -> dict:
     lib.drt_add_salt.argtypes = [p, p, ctypes.c_int, p]
     lib.drt_add_salt.restype = ctypes.c_int
     lib.drt_add_salt_value.restype = ctypes.c_float
+    lib.drt_add_salt_occupancy.argtypes = [p]
+    lib.drt_add_salt_occupancy.restype = ctypes.c_int
     lib.drt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.drt_cuda_error_string.restype = ctypes.c_char_p
     salt = float(lib.drt_add_salt_value())
@@ -94,11 +96,14 @@ def child(src: Path, build_dir: Path) -> dict:
     launches = LAUNCHES
     ref = add_salt_reference(x, salt)
     torch.cuda.synchronize()
+    blocks = ctypes.c_int(0)
+    if lib.drt_add_salt_occupancy(ctypes.byref(blocks)) != 0:
+        raise RuntimeError("add_salt occupancy query failed")
     return {"built": rec["built"], "load_seconds": rec["seconds"],
             "salt": salt, "ok": bool(torch.equal(y, ref)),
             "max_abs_err": float((y - ref).abs().max()),
             "bits": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest(),
-            "launches": launches,
+            "launches": launches, "blocks_per_sm": blocks.value,
             "ms": device_ms(lambda: add_salt(lib, x), reps=20),
             "plain_ms": device_ms(lambda: add_salt_reference(x, salt),
                                   reps=20)}

@@ -4,8 +4,10 @@ duplicated triangles (exact t ties inside a cluster and across two): K1
 (csrc/traverse_sweep.cu) in its plain, any-hit, emit_attrs and counters
 calls, K2 (csrc/traverse_pallas.cu) in both node-table instances, closest
 and any-hit, K3 (csrc/add_salt.cu) through the build-cache tool's child,
-and K4 (csrc/rows_grad.cu, the row fetch's backward) against its twin at
-the bench step's shapes, two launches bit for bit; and the bench step
+and K4 (csrc/rows_grad.cu, the row fetch's backward) in both instances
+against its twins at the bench step's shapes and at edge shapes, its
+plan's integers against the plain plan's, two launches and a CUDA-graph
+replay bit for bit, with no host sync; and the bench step
 itself twice, loss and gradients bit for bit, with each shading fetch.
 chip_smoke.py keeps its own checks (phases 3, 3t, 3p, 10, 27, 28)."""
 
@@ -13,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TIE_CALLS, tie_rays, tie_soup
+from chip_smoke import (ROWS_CASES, ROWS_EDGE_CASES, TIE_CALLS,
+                        check_rows_kernel, rows_inputs, tie_rays,
+                        tie_soup)
 
 pytestmark = pytest.mark.gpu
 K = 32
@@ -88,38 +92,31 @@ def test_add_salt_kernel_matches_twin(tmp_path):
     assert res["launches"] == 1
 
 
-# K4 at the bench step's shapes: 262,144 lanes into the material table and
-# the bench sphere's triangle table (~40% of the lanes on row 0, as the
-# clamped miss lanes), and into a 256x256 float texel stack
-ROW_LANES = 262_144
+# K4 at chip_smoke.py's timed shapes (the bench step's material and
+# triangle tables with ~40% of the lanes on row 0, a 256 x 256 float texel
+# stack, the smooth-normal fetch's 28 columns) and at its edge shapes
+ROW_CASES = {**ROWS_CASES, **ROWS_EDGE_CASES}
 
 
-@pytest.mark.parametrize("n_rows,cols", [(2, 11), (16130, 19), (65536, 4)],
-                         ids=["material", "triangles", "texels"])
-def test_rows_grad_kernel_matches_twin(n_rows, cols):
+@pytest.mark.parametrize("case", list(ROW_CASES))
+def test_rows_grad_kernel_matches_twin(case):
+    """One launch a call; then chip_smoke.check_rows_kernel: the twins'
+    tolerance, two launches bit for bit, the plan kernels' integers equal
+    to the plain plan's, a strided cotangent, no host sync, a CUDA-graph
+    replay bit for bit. The plan-free instance also equals its float32
+    replay (ops/rows.py::rows_grad_small_replay) bit for bit."""
     from dustraytracer_tpu_torch.ops import rows
 
-    rng = np.random.default_rng(n_rows)
-    if n_rows == 65536:
-        idx = rng.integers(0, n_rows, ROW_LANES)
-    else:
-        idx = np.where(rng.uniform(size=ROW_LANES) < 0.4, 0,
-                       rng.integers(0, n_rows, ROW_LANES))
-    idx = torch.from_numpy(idx).to("cuda")
-    grad = torch.from_numpy(rng.normal(size=(ROW_LANES, cols))
-                            .astype(np.float32)).to("cuda")
+    grad, idx, n_rows = rows_inputs(*ROW_CASES[case], seed=7)
     before = rows.LAUNCHES
-    got = rows.rows_grad(grad, idx, n_rows)
-    again = rows.rows_grad(grad, idx, n_rows)
+    rows.rows_grad(grad, idx, n_rows)
     torch.cuda.synchronize()
-    assert rows.LAUNCHES == before + 2
-    assert torch.equal(got, again)
-    # the tests' gradient tolerance: atol 2e-4 max|g|, rtol 2e-3
-    for ref in (rows.rows_grad_reference(grad, idx, n_rows),
-                rows.rows_grad_reference(grad.double(), idx, n_rows)):
-        ref = ref.double()
-        bound = 2e-4 * float(ref.abs().max()) + 2e-3 * ref.abs()
-        assert bool(((got.double() - ref).abs() <= bound).all())
+    assert rows.LAUNCHES == before + 1
+    res = check_rows_kernel(grad, idx, n_rows)
+    assert res["instance"] == ("plan_free" if rows.is_small(
+        n_rows, grad.shape[1]) else "planned")
+    if res["instance"] == "plan_free":
+        assert res["replay_bit_equal"], res
 
 
 @pytest.fixture(scope="module")
