@@ -137,8 +137,8 @@ Phases 17-23 run on the bench sphere again, after phase 16:
                rendering its tile on cuda:0 (512x512 b4, 2 spp); rank 0's
                gathered image against the one-process two-tile render
                (atol 1e-5); seconds
- 21. profiling DeviceTimer inside CUDA events around one sample, five
-               times; trace() writes a Chrome trace with device kernels
+ 21. profiling trace() writes a Chrome trace of one sample with device
+               kernels, and spans.json with the sample's drt.* spans
  22. viewer    the viewer's render thread and HTTP API on the card at
                256x256 b4: samples accumulate, /frame.png, a move and a
                settings change reset it; FrameStats' ms_avg
@@ -462,29 +462,28 @@ def tie_rays(pos, pairs, seed: int = 6):
     return o.astype(np.float32), d.astype(np.float32)
 
 
-def reset_launches() -> None:
-    from dustraytracer_tpu_torch.ops import peaks as pk
-    from dustraytracer_tpu_torch.ops import rows as rw
-    from dustraytracer_tpu_torch.ops import traverse_pallas as tp
-    from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+# the launch counters (utils/profiling.py) by the kernel they count
+LAUNCH_COUNTERS = {"traverse_sweep": "drt.launch.k1",
+                   "traverse_sweep[emit_attrs]": "drt.launch.k1_emit",
+                   "traverse_sweep[counters]": "drt.launch.k1_counters",
+                   "traverse_pallas": "drt.launch.k2",
+                   "fma_peak": "drt.launch.fma_peak",
+                   "rows_grad": "drt.launch.k4"}
 
-    ts.LAUNCHES = ts.EMIT_LAUNCHES = ts.COUNT_LAUNCHES = 0
-    tp.LAUNCHES = pk.LAUNCHES = rw.LAUNCHES = 0
+
+def reset_launches() -> None:
+    from dustraytracer_tpu_torch.utils import profiling
+
+    profiling.clear()
 
 
 def read_launches() -> dict:
     """Launches since reset_launches(), by kernel (add_salt runs only in
     the cache-reload tool's child processes, which report their own)."""
-    from dustraytracer_tpu_torch.ops import peaks as pk
-    from dustraytracer_tpu_torch.ops import rows as rw
-    from dustraytracer_tpu_torch.ops import traverse_pallas as tp
-    from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+    from dustraytracer_tpu_torch.utils import profiling
 
-    return {"traverse_sweep": ts.LAUNCHES,
-            "traverse_sweep[emit_attrs]": ts.EMIT_LAUNCHES,
-            "traverse_sweep[counters]": ts.COUNT_LAUNCHES,
-            "traverse_pallas": tp.LAUNCHES, "fma_peak": pk.LAUNCHES,
-            "rows_grad": rw.LAUNCHES}
+    got = profiling.counters("drt.launch.")
+    return {k: got.get(name, 0) for k, name in LAUNCH_COUNTERS.items()}
 
 
 def compare_images(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -878,7 +877,7 @@ def port_phases(scene, camera, lights, glb: Path, tmp: Path, env,
     from dustraytracer_tpu_torch.scene.settings import RenderSettings
     from dustraytracer_tpu_torch.tools.grad_bench import (POSE, median_ms,
                                                           sphere_doc)
-    from dustraytracer_tpu_torch.utils.profiling import DeviceTimer, trace
+    from dustraytracer_tpu_torch.utils.profiling import trace
 
     dev = torch.device("cuda", 0)
     no_kernel = dict.fromkeys(read_launches(), 0)
@@ -1062,22 +1061,10 @@ def port_phases(scene, camera, lights, glb: Path, tmp: Path, env,
          spp=MULTIHOST_SPP, max_abs_diff=diff, wall_seconds=wall,
          rank0_render_seconds=json.loads(outs[0][0])["seconds"])
 
-    # profiling: DeviceTimer inside CUDA events around one sample; a trace
-    timer = DeviceTimer()
-    check(timer.device.type == "cuda", f"DeviceTimer on {timer.device}")
-    pairs = []
-    for _ in range(5):
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        with timer.time():
-            plain()
-        e1.record()
-        torch.cuda.synchronize()
-        pairs.append((timer.ms, e0.elapsed_time(e1)))
-    check(all(0.5 * ev <= t <= ev + 1e-3 for t, ev in pairs),
-          f"DeviceTimer vs CUDA events: {pairs}")
-    # the profiler has lost a whole window's kernels in some processes
-    # (grad_bench.device_ms): a trace without one is taken again, twice
+    # profiling: a trace of one sample holds device kernels and the
+    # program's spans. The profiler has lost a whole window's kernels in
+    # some processes (grad_bench.device_ms): a trace without one is taken
+    # again, twice
     for tries in range(1, 4):
         with trace(str(tmp / "trace")):
             plain()
@@ -1088,9 +1075,11 @@ def port_phases(scene, camera, lights, glb: Path, tmp: Path, env,
         if kernels:
             break
     check(kernels > 0, f"trace holds no device kernel in {tries} tries")
-    emit("profiling", device_timer_ms=[t for t, _ in pairs],
-         cuda_events_ms=[ev for _, ev in pairs], trace_kernels=kernels,
-         trace_tries=tries)
+    totals = json.loads((tmp / "trace" / "spans.json").read_text())["totals"]
+    check({"drt.sample", "drt.raygen", "drt.b0.trace"} <= set(totals),
+          f"spans.json lacks the sample's spans: {sorted(totals)}")
+    emit("profiling", trace_kernels=kernels, trace_tries=tries,
+         span_ms={k: v["total_ms"] for k, v in sorted(totals.items())})
 
     # viewer: the API roundtrip on the card
     vs = VIEWER_SIZE
@@ -1486,8 +1475,9 @@ def check_rows_kernel(grad, idx, n_rows) -> dict:
 def _kernels_per_call(fn) -> int:
     """Device kernels of csrc/rows_grad.cu that one call of fn launches
     (torch.profiler; 0 where it lost the events)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dustraytracer_tpu_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
@@ -1495,9 +1485,8 @@ def _kernels_per_call(fn) -> int:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if getattr(e, "device_type", None) == DeviceType.CUDA
-               and "rows_grad_" in e.name)
+    return sum(1 for e in profiling.device_ops(prof)
+               if "rows_grad_" in e.name)
 
 
 def _rows_case(grad, idx, n_rows) -> dict:

@@ -17,12 +17,14 @@ the host.
 and saves it when the render ends. `--devices N` splits the pixels of
 every sample over N devices (parallel/shard.py): the first N cards, or
 with `--cpu` N tiles on the CPU; one sample warms up outside the timed
-window, as in the JAX CLI.
+window, as in the JAX CLI. `--trace DIR` renders under
+`utils/profiling.py::trace` and writes DIR/trace.json and DIR/spans.json.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -83,6 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--cpu", action="store_true",
                    help="render on the CPU: --device cpu")
     r.add_argument("--metrics-out", help="write render metrics JSON here")
+    r.add_argument("--trace", metavar="DIR",
+                   help="render under profiling.trace(DIR): writes "
+                   "DIR/trace.json (torch.profiler) and DIR/spans.json "
+                   "(the program's drt.* spans and counters)")
     r.add_argument("--checkpoint", help="film checkpoint path (.npz); "
                    "resumes if it exists, saves on completion")
 
@@ -128,6 +134,7 @@ def cmd_render(args) -> int:
                                                         LightParams,
                                                         RenderMode,
                                                         RenderSettings)
+    from dustraytracer_tpu_torch.utils import profiling
     from dustraytracer_tpu_torch.utils.checkpoint import (load_film,
                                                           save_film)
     from dustraytracer_tpu_torch.utils.image import save_png
@@ -205,20 +212,21 @@ def cmd_render(args) -> int:
         ev1 = torch.cuda.Event(enable_timing=True)
         ev0.record()
     t0 = time.perf_counter()
-    if args.devices > 0:
-        with torch.inference_mode():
-            for f in range(film.frame, film.frame + todo):
-                film = film_add(film, one_sample(f))
-    else:
-        film = film_accumulate(scene, camera, lights, film, todo,
-                               width=width, height=height,
-                               settings=settings)
-    if cuda:
-        ev1.record()
-        torch.cuda.synchronize(device)
-        render_s = ev0.elapsed_time(ev1) / 1e3
-    else:
-        render_s = time.perf_counter() - t0
+    with (profiling.trace(args.trace) if args.trace
+          else contextlib.nullcontext()):
+        if args.devices > 0:
+            with torch.inference_mode():
+                for f in range(film.frame, film.frame + todo):
+                    film = film_add(film, one_sample(f))
+        else:
+            film = film_accumulate(scene, camera, lights, film, todo,
+                                   width=width, height=height,
+                                   settings=settings)
+        if cuda:
+            ev1.record()
+            torch.cuda.synchronize(device)
+    render_s = (ev0.elapsed_time(ev1) / 1e3 if cuda
+                else time.perf_counter() - t0)
 
     save_png(args.out, film_image(film))
     if args.checkpoint:

@@ -22,6 +22,7 @@ decode_textures); `vertices` renders with soft edges 0.05 unless
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -31,7 +32,6 @@ import time
 import numpy as np
 import torch
 
-from dustraytracer_tpu_torch.ops import traverse_sweep as ts
 from dustraytracer_tpu_torch.parallel.mesh import (make_render_mesh,
                                                    replicate_scene)
 from dustraytracer_tpu_torch.parallel.shard import (apply_params,
@@ -45,6 +45,7 @@ from dustraytracer_tpu_torch.scene.settings import (LightParams,
 from dustraytracer_tpu_torch.utils.checkpoint import (load_train_state,
                                                       param_leaves,
                                                       save_train_state)
+from dustraytracer_tpu_torch.utils import profiling
 from dustraytracer_tpu_torch.utils.image import save_png
 
 PARAM_KEYS = {
@@ -117,6 +118,9 @@ def build_parser():
                    "default: 0.05 when optimizing vertices, else 0")
     p.add_argument("--nee-cosine", action="store_true",
                    help="N*L on sun NEE")
+    p.add_argument("--trace", metavar="DIR",
+                   help="run the optimisation under profiling.trace(DIR): "
+                   "writes DIR/trace.json and DIR/spans.json")
     return p
 
 
@@ -212,17 +216,28 @@ def train_step(params: dict, optimizer, loss_fn, frame: int):
     """One Adam step and projection, in place; returns the loss before
     the step. A leaf the loss does not reach gets a zero gradient, as in
     JAX, so every Adam moment decays each step as optax's does (with one
-    bounce and hard edges, say, the image does not depend on vertices)."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(params, frame)
-    if loss.requires_grad:
-        loss.backward()
-    for t in param_leaves(params):
-        if t.grad is None:
-            t.grad = torch.zeros_like(t)
-    optimizer.step()
-    project_params(params)
-    return loss.detach()
+    bounce and hard edges, say, the image does not depend on vertices).
+    Spans: drt.step around the call, drt.step.forward, .backward (the
+    drt.bwd.loss and drt.bwd.b{i} chain inside), .adam and .project."""
+    with profiling.span("drt.step"):
+        optimizer.zero_grad(set_to_none=True)
+        with profiling.span("drt.step.forward"):
+            loss = loss_fn(params, frame)
+        with profiling.span("drt.step.backward"):
+            if loss.requires_grad:
+                # drt.bwd.loss runs from the call to the last bounce's
+                # drt.bwd.b{i}, which a gradient hook opens
+                profiling.chain("drt.bwd.loss")
+                loss.backward()
+                profiling.end_chain()
+        with profiling.span("drt.step.adam"):
+            for t in param_leaves(params):
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+            optimizer.step()
+        with profiling.span("drt.step.project"):
+            project_params(params)
+        return loss.detach()
 
 
 def main(argv=None) -> int:
@@ -294,24 +309,28 @@ def main(argv=None) -> int:
     loss_fn = make_loss_fn(scene, cam, lights, target, width=w, height=h,
                            settings=settings, mesh=mesh)
     history = []
-    launches0 = (ts.LAUNCHES, ts.EMIT_LAUNCHES)
+    kinds = ("drt.launch.k1", "drt.launch.k1_emit")
+    launches0 = profiling.counters("drt.launch.")
     t0 = time.perf_counter()
-    for step in range(start_step, args.steps):
-        frame = step % 64 if args.stochastic else 0
-        loss = train_step(params, optimizer, loss_fn, frame)
-        if step % 10 == 0 or step == args.steps - 1:
-            val = float(loss)
-            history.append({"step": step, "loss": val,
-                            "t": round(time.perf_counter() - t0, 2)})
-            print(f"step {step:5d}  loss {val:.6f}", file=sys.stderr)
-        if args.checkpoint_every and step and \
-                step % args.checkpoint_every == 0:
-            save_train_state(f"{args.out}/ckpt", params, optimizer,
-                             step=step)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with (profiling.trace(args.trace) if args.trace
+          else contextlib.nullcontext()):
+        for step in range(start_step, args.steps):
+            frame = step % 64 if args.stochastic else 0
+            loss = train_step(params, optimizer, loss_fn, frame)
+            if step % 10 == 0 or step == args.steps - 1:
+                val = float(loss)
+                history.append({"step": step, "loss": val,
+                                "t": round(time.perf_counter() - t0, 2)})
+                print(f"step {step:5d}  loss {val:.6f}", file=sys.stderr)
+            if args.checkpoint_every and step and \
+                    step % args.checkpoint_every == 0:
+                save_train_state(f"{args.out}/ckpt", params, optimizer,
+                                 step=step)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     train_s = time.perf_counter() - t0
-    launches = [ts.LAUNCHES - launches0[0], ts.EMIT_LAUNCHES - launches0[1]]
+    launches1 = profiling.counters("drt.launch.")
+    launches = [launches1.get(k, 0) - launches0.get(k, 0) for k in kinds]
 
     # --- report ---
     with torch.inference_mode():

@@ -18,11 +18,12 @@ import ctypes
 import numpy as np
 import torch
 
+from dustraytracer_tpu_torch.utils import profiling
+
 A = float(np.float32(1.0000001))  # the kernel's float32 constants
 B = float(np.float32(1e-7))
 STEP = 2.0 ** -10
 CHAINS = 8
-LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 
 def _check(x0) -> None:
@@ -84,7 +85,6 @@ def fma_chain(x0: torch.Tensor, iters: int) -> torch.Tensor:
     kernel in float32 on a CUDA tensor, the float64 reference (returned as
     float32) on a CPU tensor. x0 in [1, 1.5) keeps every chain's start
     exact in float32, as in the reference."""
-    global LAUNCHES
     _check(x0)
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
@@ -101,5 +101,5 @@ def fma_chain(x0: torch.Tensor, iters: int) -> torch.Tensor:
         raise RuntimeError(f"fma_peak launch failed: "
                            f"{lib.drt_cuda_error_string(err).decode()} "
                            f"(cudaError {err})")
-    LAUNCHES += 1
+    profiling.count("drt.launch.fma_peak")
     return y

@@ -36,6 +36,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from dustraytracer_tpu_torch.utils import profiling
+
 # Layout constants; csrc/rows_grad.cu's must equal them (load_kernel checks)
 CHUNK = 128            # sorted lanes per chunk: the planned sum's first level
 SORT_TILE = 2048       # lanes per block of a radix pass
@@ -48,7 +50,6 @@ CONSTANTS = (CHUNK, SORT_TILE, SMALL_SLOTS, SMALL_TILE, SMALL_BLOCK,
 # the kernels of csrc/rows_grad.cu, in drt_rows_grad_occupancy's order
 KERNELS = ("hist_i64", "hist_i32", "scan", "scatter_i64", "scatter_i32",
            "starts", "heads", "chunks", "rows", "tiles", "tile_sum")
-LAUNCHES = 0  # rows_grad calls that launched the kernels since import
 
 
 def rows_grad_reference(grad: torch.Tensor, idx: torch.Tensor,
@@ -242,7 +243,6 @@ def rows_grad(grad: torch.Tensor, idx: torch.Tensor,
     `grad` (N, C): (n_rows, C). The kernels on a CUDA tensor (float32; ids
     must lie in [0, n_rows), as index_select checked them; any row stride
     with unit column stride), the twin on a CPU tensor."""
-    global LAUNCHES
     _check_ids(idx, grad.shape[0] if grad.dim() else -1)
     if grad.device.type == "cpu":
         return rows_grad_reference(grad, idx, n_rows)
@@ -282,7 +282,7 @@ def rows_grad(grad: torch.Tensor, idx: torch.Tensor,
                 partial.data_ptr(), out.data_ptr(), n, n_rows, cols, chunks,
                 multi, stream)
         _raise_on(lib, err, "launch")
-    LAUNCHES += 1
+    profiling.count("drt.launch.k4")
     return out
 
 
@@ -296,8 +296,9 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
-        return rows_grad(grad, idx, ctx.n_rows), None
+        with profiling.span("drt.bwd.rows"):
+            (idx,) = ctx.saved_tensors
+            return rows_grad(grad, idx, ctx.n_rows), None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -31,13 +31,11 @@ from dustraytracer_tpu_torch.ops.traverse_sweep import (BIG, _check_rays,
                                                         _t_init, cluster_mt,
                                                         device_tables,
                                                         slab_enter)
+from dustraytracer_tpu_torch.utils import profiling
 
 _NO_ID = 2 ** 30
 MAX_STEPS_FACTOR = 2  # the TPU kernel's bound: 2 * n_nodes + 4 steps
 
-# kernel launches since import (or since a caller reset them), of either
-# instance; the twin never counts
-LAUNCHES = 0
 # the kernel's instances: node table in shared memory, or read through
 # the read-only cache (csrc/traverse_pallas.cu, point 4)
 NODE_TABLES = ("shared", "global")
@@ -185,7 +183,6 @@ def device_base_nodes(cb: ClusterBvh) -> torch.Tensor:
 @torch.no_grad()
 def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
             force_global: bool):
-    global LAUNCHES
     n = origin.shape[0]
     dev = origin.device
     t0 = _t_init(t_max, n, dev)
@@ -210,7 +207,7 @@ def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
                     out["hit_idx"].data_ptr(), out["t"].data_ptr(),
                     next_batch.data_ptr(), stream)
     _raise_on(lib, err, "kernel launch")
-    LAUNCHES += 1
+    profiling.count("drt.launch.k2")  # either instance; the twin never counts
     return out
 
 

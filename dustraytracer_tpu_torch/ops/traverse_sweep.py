@@ -35,16 +35,11 @@ import ctypes
 import torch
 
 from dustraytracer_tpu_torch.accel.cluster import ClusterBvh
+from dustraytracer_tpu_torch.utils import profiling
 
 BIG = 3.4e38
 _NO_ID = 2 ** 30
 
-# kernel launches since import (or since a caller reset them), closest
-# or any-hit without emission, with emit_attrs, and with counters; the
-# twin never counts
-LAUNCHES = 0
-EMIT_LAUNCHES = 0
-COUNT_LAUNCHES = 0
 WARP = 32  # the lockstep unit of the counters
 # a served leaf takes ceil(K / 32) triangle slots a lane; scene builds
 # pick K = 8 to 64
@@ -359,7 +354,6 @@ def device_attr_table(cb: ClusterBvh):
 @torch.no_grad()
 def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
             emit_attrs: bool, counters: bool):
-    global LAUNCHES, EMIT_LAUNCHES, COUNT_LAUNCHES
     n = origin.shape[0]
     dev = origin.device
     t0 = _t_init(t_max, n, dev)
@@ -407,12 +401,11 @@ def _launch(cb: ClusterBvh, origin, direction, anyhit: bool, t_max,
         msg = lib.drt_cuda_error_string(err).decode()
         raise RuntimeError(f"traverse_sweep kernel launch failed: {msg} "
                            f"(cudaError {err})")
-    if emit_attrs:
-        EMIT_LAUNCHES += 1
-    elif counters:
-        COUNT_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+    # launches by instance: closest or any-hit without emission (k1),
+    # with emit_attrs, with counters; the twin never counts
+    profiling.count("drt.launch.k1_emit" if emit_attrs else
+                    "drt.launch.k1_counters" if counters else
+                    "drt.launch.k1")
     return out
 
 

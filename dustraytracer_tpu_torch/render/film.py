@@ -9,6 +9,7 @@ import torch
 
 from dustraytracer_tpu_torch.render.integrator import render_sample
 from dustraytracer_tpu_torch.scene.settings import LightParams, RenderSettings
+from dustraytracer_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -23,12 +24,14 @@ def film_init(width: int, height: int, device="cpu") -> Film:
 
 
 def film_add(film: Film, sample: torch.Tensor) -> Film:
-    return Film(accum=film.accum + sample, frame=film.frame + 1)
+    with profiling.span("drt.film_add"):
+        return Film(accum=film.accum + sample, frame=film.frame + 1)
 
 
 def film_image(film: Film) -> torch.Tensor:
     """Running mean of the accumulated samples."""
-    return film.accum / float(max(film.frame, 1))
+    with profiling.span("drt.film_image"):
+        return film.accum / float(max(film.frame, 1))
 
 
 @torch.inference_mode()
@@ -50,11 +53,13 @@ def render_progressive(scene, camera, settings: RenderSettings, *,
                        lights: LightParams | None = None,
                        film: Film | None = None) -> Film:
     """Accumulate `spp` more samples on the scene's device, stopping at
-    `settings.max_samples` in total (the reference's sample cap)."""
-    dev = scene.device
-    camera = camera.to(dev)
-    lights = (lights or LightParams.from_settings(settings)).to(dev)
-    film = film or film_init(width, height, device=dev)
-    todo = min(film.frame + spp, settings.max_samples) - film.frame
-    return film_accumulate(scene, camera, lights, film, max(todo, 0),
-                           width=width, height=height, settings=settings)
+    `settings.max_samples` in total (the reference's sample cap). One
+    `drt.frame` span a call."""
+    with profiling.span("drt.frame"):
+        dev = scene.device
+        camera = camera.to(dev)
+        lights = (lights or LightParams.from_settings(settings)).to(dev)
+        film = film or film_init(width, height, device=dev)
+        todo = min(film.frame + spp, settings.max_samples) - film.frame
+        return film_accumulate(scene, camera, lights, film, max(todo, 0),
+                               width=width, height=height, settings=settings)

@@ -35,6 +35,7 @@ JAX's, half on each side.
 
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 
 import torch
@@ -56,6 +57,7 @@ from dustraytracer_tpu_torch.scene.camera import Camera, generate_rays
 from dustraytracer_tpu_torch.scene.settings import (DebugMode, LightParams,
                                                     RenderMode,
                                                     RenderSettings)
+from dustraytracer_tpu_torch.utils import profiling
 
 _PARK = 3.0e37  # origin of dead lanes: their walk ends at the root
 # padded-triangle counts where shade_fetch="auto" picks the kernel fetch
@@ -233,24 +235,26 @@ class _KernelShade(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        *diff, tri_face_nrm, tri_mat, hit_idx = ctx.saved_tensors
-        ins = [x.detach().requires_grad_(need)
-               for x, need in zip(diff, ctx.needs_input_grad)]
-        geo = SimpleNamespace(tri_pos=ins[0], tri_uv=ins[1],
-                              tri_face_nrm=tri_face_nrm, tri_mat=tri_mat)
-        with torch.enable_grad():
-            sh = shade_hits(geo, ins[2], ins[3], hit_idx)
-            outs = (sh["t"], sh["bary"][:, 1], sh["bary"][:, 2],
-                    sh["normal"], sh["uv"])
-        # an output that depends on no differentiable input (the normal
-        # when only the rays are) is a constant: leave its cotangent out
-        pulled = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-        live = [x for x in ins if x.requires_grad]
-        got = iter(torch.autograd.grad([o for o, _ in pulled], live,
-                                       [g for _, g in pulled],
-                                       allow_unused=True))
-        return (*(next(got) if x.requires_grad else None for x in ins),
-                *(None,) * 8)
+        with profiling.span("drt.bwd.shade"):
+            *diff, tri_face_nrm, tri_mat, hit_idx = ctx.saved_tensors
+            ins = [x.detach().requires_grad_(need)
+                   for x, need in zip(diff, ctx.needs_input_grad)]
+            geo = SimpleNamespace(tri_pos=ins[0], tri_uv=ins[1],
+                                  tri_face_nrm=tri_face_nrm, tri_mat=tri_mat)
+            with torch.enable_grad():
+                sh = shade_hits(geo, ins[2], ins[3], hit_idx)
+                outs = (sh["t"], sh["bary"][:, 1], sh["bary"][:, 2],
+                        sh["normal"], sh["uv"])
+            # an output that depends on no differentiable input (the
+            # normal when only the rays are) is a constant: leave its
+            # cotangent out
+            pulled = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            live = [x for x in ins if x.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pulled], live,
+                                           [g for _, g in pulled],
+                                           allow_unused=True))
+            return (*(next(got) if x.requires_grad else None for x in ins),
+                    *(None,) * 8)
 
 
 def _shade_from_kernel(scene, origin, direction, hit_idx, rec):
@@ -573,93 +577,119 @@ def _pbr_bounce(sh, matd, direction, ball, bounce_dir, new_origin,
     return bounce_dir, new_origin, throughput, rng
 
 
+@functools.lru_cache(maxsize=None)
+def _bounce_spans(i: int) -> SimpleNamespace:
+    """The span names of bounce i: its trace, shade, NEE and scatter, and
+    its segment of the backward."""
+    return SimpleNamespace(trace=f"drt.b{i}.trace", shade=f"drt.b{i}.shade",
+                           nee=f"drt.b{i}.nee", scatter=f"drt.b{i}.scatter",
+                           bwd=f"drt.bwd.b{i}")
+
+
 def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
              carry, bounce_idx: int):
     """One path segment for all rays. The RNG stream is drawn in the JAX
     package's order: u_edge, sun jitter, u_rr, ball, the cosine sample,
-    u_lobe, u_glass, u_fresnel."""
+    u_lobe, u_glass, u_fresnel. Spans: drt.b{i}.trace, .shade, .nee and
+    .scatter."""
     origin, direction, throughput, light, alive, rng = carry
-    sun_pos = lights.sun_position()
-    sun_col = lights.sun_color * lights.sun_intensity
     trace_closest, trace_anyhit = tracers
     pbr = settings.shading == "pbr"
+    names = _bounce_spans(bounce_idx)
 
-    # dead lanes park far away (traversal only: shading sees `origin`)
-    o_live = torch.where(alive[:, None], origin.detach(), _PARK)
-    res = trace_closest(o_live, direction)
-    hit_idx = torch.where(alive, res["hit_idx"], -1)
-    if settings.soft_edges > 0.0:
-        rng, u_edge = random_float(rng)
-        hit_idx, throughput, light = _soft_edges(
-            trace_closest, scene, lights, settings, origin, direction,
-            o_live, res, alive, hit_idx, u_edge, throughput, light)
-    miss = hit_idx < 0
-    live_hit = alive & ~miss
+    with profiling.span(names.trace):
+        # dead lanes park far away (traversal only: shading sees `origin`)
+        o_live = torch.where(alive[:, None], origin.detach(), _PARK)
+        res = trace_closest(o_live, direction)
+        hit_idx = torch.where(alive, res["hit_idx"], -1)
+        if settings.soft_edges > 0.0:
+            rng, u_edge = random_float(rng)
+            hit_idx, throughput, light = _soft_edges(
+                trace_closest, scene, lights, settings, origin, direction,
+                o_live, res, alive, hit_idx, u_edge, throughput, light)
+        miss = hit_idx < 0
+        live_hit = alive & ~miss
 
-    # sky on miss
-    sky = _sky(direction, lights)
-    light = light + torch.where((alive & miss)[:, None],
-                                throughput * sky * lights.sky_intensity, 0.0)
+    with profiling.span(names.shade):
+        # sky on miss
+        sky = _sky(direction, lights)
+        light = light + torch.where((alive & miss)[:, None],
+                                    throughput * sky * lights.sky_intensity,
+                                    0.0)
 
-    if settings.shade_fetch == "kernel":
-        sh = _shade_from_kernel(scene, origin, direction, hit_idx, res)
-    else:
-        sh = shade_hits(scene, origin, direction, hit_idx,
-                        smooth=settings.smooth_shading)
-    matd = _fetch_material(scene, sh["material"])
-    if pbr:  # emission, before the albedo multiply
-        light = light + torch.where(live_hit[:, None],
-                                    throughput * matd["emissive"], 0.0)
-    alb = _albedo(scene, matd, sh["uv"],
-                  bilinear=settings.tex_filter == "bilinear")
-    throughput = torch.where(live_hit[:, None], throughput * alb, throughput)
-    new_origin = sh["world_position"] + sh["normal"] * 1e-3
+        if settings.shade_fetch == "kernel":
+            sh = _shade_from_kernel(scene, origin, direction, hit_idx, res)
+        else:
+            sh = shade_hits(scene, origin, direction, hit_idx,
+                            smooth=settings.smooth_shading)
+        matd = _fetch_material(scene, sh["material"])
+        if profiling.enabled():  # the material fetch's lanes, for K4
+            profiling.count("drt.k4.lanes", live_hit.shape[0])
+            profiling.count_device("drt.k4.live_lanes", live_hit.sum())
+        if pbr:  # emission, before the albedo multiply
+            light = light + torch.where(live_hit[:, None],
+                                        throughput * matd["emissive"], 0.0)
+        alb = _albedo(scene, matd, sh["uv"],
+                      bilinear=settings.tex_filter == "bilinear")
+        throughput = torch.where(live_hit[:, None], throughput * alb,
+                                 throughput)
+        new_origin = sh["world_position"] + sh["normal"] * 1e-3
 
     # sun NEE shadow ray
     if settings.enable_sunlight:
-        rng, jit_vec = random_unit_vec3(rng)
-        shadow_dir = sun_pos[None, :] + jit_vec * 1.5
-        nee_o = torch.where(live_hit[:, None], new_origin.detach(), _PARK)
-        occluded = trace_anyhit(nee_o, shadow_dir)
-        contrib = sun_col[None, :] * throughput
-        if pbr:
-            # only the (1 - transmission) reflected share of a dielectric
-            # sees the sun; the shadow ray still treats glass as opaque
-            contrib = contrib * (1.0 - (1.0 - matd["metallic"])
-                                 * matd["transmission"])[:, None]
-        if settings.nee_cosine:
-            d_n = shadow_dir / _norm(shadow_dir)
-            contrib = contrib * torch.clamp_min(
-                (sh["normal"] * d_n).sum(dim=-1), 0.0)[:, None]
-        light = light + torch.where((live_hit & ~occluded)[:, None],
-                                    contrib, 0.0)
+        with profiling.span(names.nee):
+            sun_pos = lights.sun_position()
+            sun_col = lights.sun_color * lights.sun_intensity
+            rng, jit_vec = random_unit_vec3(rng)
+            shadow_dir = sun_pos[None, :] + jit_vec * 1.5
+            nee_o = torch.where(live_hit[:, None], new_origin.detach(),
+                                _PARK)
+            occluded = trace_anyhit(nee_o, shadow_dir)
+            contrib = sun_col[None, :] * throughput
+            if pbr:
+                # only the (1 - transmission) reflected share of a
+                # dielectric sees the sun; the shadow ray still treats
+                # glass as opaque
+                contrib = contrib * (1.0 - (1.0 - matd["metallic"])
+                                     * matd["transmission"])[:, None]
+            if settings.nee_cosine:
+                d_n = shadow_dir / _norm(shadow_dir)
+                contrib = contrib * torch.clamp_min(
+                    (sh["normal"] * d_n).sum(dim=-1), 0.0)[:, None]
+            light = light + torch.where((live_hit & ~occluded)[:, None],
+                                        contrib, 0.0)
 
-    # russian roulette
-    if settings.russian_roulette:
-        rng, u_rr = random_float(rng)
-        p = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
-        if bounce_idx >= settings.rr_start_bounce:
-            survive = u_rr < p
-            throughput = throughput * torch.where(survive, 1.0 / p,
-                                                  1.0)[:, None]
+    with profiling.span(names.scatter):
+        # russian roulette
+        if settings.russian_roulette:
+            rng, u_rr = random_float(rng)
+            p = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
+            if bounce_idx >= settings.rr_start_bounce:
+                survive = u_rr < p
+                throughput = throughput * torch.where(survive, 1.0 / p,
+                                                      1.0)[:, None]
+            else:
+                survive = torch.ones_like(live_hit)
+            alive = live_hit & survive
         else:
-            survive = torch.ones_like(live_hit)
-        alive = live_hit & survive
-    else:
-        alive = live_hit
+            alive = live_hit
 
-    # diffuse bounce: normal + in-ball sample (or cosine-weighted)
-    rng, ball = random_in_ball(rng)
-    bounce_dir = sh["normal"] + ball
-    if settings.cosine_weighted:
-        rng, sph = random_unit_vec3(rng)
-        bounce_dir = sh["normal"] + sph
-        bounce_dir = bounce_dir / torch.clamp_min(_norm(bounce_dir), 1e-8)
-    if pbr:
-        bounce_dir, new_origin, throughput, rng = _pbr_bounce(
-            sh, matd, direction, ball, bounce_dir, new_origin, throughput,
-            live_hit, rng)
+        # diffuse bounce: normal + in-ball sample (or cosine-weighted)
+        rng, ball = random_in_ball(rng)
+        bounce_dir = sh["normal"] + ball
+        if settings.cosine_weighted:
+            rng, sph = random_unit_vec3(rng)
+            bounce_dir = sh["normal"] + sph
+            bounce_dir = bounce_dir / torch.clamp_min(_norm(bounce_dir),
+                                                      1e-8)
+        if pbr:
+            bounce_dir, new_origin, throughput, rng = _pbr_bounce(
+                sh, matd, direction, ball, bounce_dir, new_origin,
+                throughput, live_hit, rng)
 
+    # the backward's segment of this bounce starts where its outputs'
+    # gradients are complete
+    profiling.mark_backward(names.bwd, throughput, light)
     return new_origin, bounce_dir, throughput, light, alive, rng
 
 
@@ -705,37 +735,42 @@ def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx: int,
     on the scene's device; differentiable in the scene's float tables,
     the camera and the lights (wrap in torch.inference_mode() to render
     without a graph). Tonemap and gamma apply in NORMAL mode and to the
-    ALBEDO debug view only."""
-    _check_settings(settings)
-    # resolve the fetch once, so the tracers and every segment agree
-    settings = settings.replace(shade_fetch=_resolve_fetch(scene, settings))
-    n = pixel_ids.shape[0]
-    dev = pixel_ids.device
-    rng = seed_pixels(pixel_ids, frame_idx)
-    rng, origin, direction = generate_rays(camera, width, height, rng,
-                                           pixel_ids=pixel_ids)
-    tracers = _make_tracers(scene, settings)
-    if settings.render_mode == RenderMode.DEBUG:
-        color = _debug_view(scene, lights, settings, tracers[0], origin,
-                            direction)
-        post = settings.debug_mode == DebugMode.ALBEDO
-    else:
-        carry = (origin, direction,
-                 torch.ones((n, 3), dtype=torch.float32, device=dev),
-                 torch.zeros((n, 3), dtype=torch.float32, device=dev),
-                 torch.ones((n,), dtype=torch.bool, device=dev), rng)
-        for bounce_idx in range(settings.bounces):
-            carry = _segment(scene, lights, settings, tracers, carry,
-                             bounce_idx)
-        color = carry[3]
-        post = True
-    if not post:
+    ALBEDO debug view only. Spans: drt.sample around the call, drt.raygen,
+    each bounce's (_segment) and drt.post."""
+    with profiling.span("drt.sample"):
+        _check_settings(settings)
+        # resolve the fetch once, so the tracers and every segment agree
+        settings = settings.replace(
+            shade_fetch=_resolve_fetch(scene, settings))
+        n = pixel_ids.shape[0]
+        dev = pixel_ids.device
+        with profiling.span("drt.raygen"):
+            rng = seed_pixels(pixel_ids, frame_idx)
+            rng, origin, direction = generate_rays(camera, width, height,
+                                                   rng, pixel_ids=pixel_ids)
+        tracers = _make_tracers(scene, settings)
+        if settings.render_mode == RenderMode.DEBUG:
+            color = _debug_view(scene, lights, settings, tracers[0], origin,
+                                direction)
+            post = settings.debug_mode == DebugMode.ALBEDO
+        else:
+            carry = (origin, direction,
+                     torch.ones((n, 3), dtype=torch.float32, device=dev),
+                     torch.zeros((n, 3), dtype=torch.float32, device=dev),
+                     torch.ones((n,), dtype=torch.bool, device=dev), rng)
+            for bounce_idx in range(settings.bounces):
+                carry = _segment(scene, lights, settings, tracers, carry,
+                                 bounce_idx)
+            color = carry[3]
+            post = True
+        if not post:
+            return color
+        with profiling.span("drt.post"):
+            if settings.enable_tonemap:
+                color = uncharted2_filmic(color, camera.exposure)
+            if settings.enable_gamma:
+                color = gamma_correct(color)
         return color
-    if settings.enable_tonemap:
-        color = uncharted2_filmic(color, camera.exposure)
-    if settings.enable_gamma:
-        color = gamma_correct(color)
-    return color
 
 
 def render_sample(scene, camera: Camera, lights: LightParams, frame_idx: int,

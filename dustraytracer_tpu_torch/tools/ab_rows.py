@@ -92,8 +92,11 @@ def kernels(fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    # a record_function span's annotation on the device's timeline is no
+    # kernel
     return [(e.name, e.time_range.elapsed_us() / reps) for e in prof.events()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def per_call(fn, stem="rows_grad_"):

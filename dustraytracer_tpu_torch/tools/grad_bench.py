@@ -50,6 +50,7 @@ from dustraytracer_tpu_torch.scene.gltf import (GltfDocument, GltfMaterial,
 from dustraytracer_tpu_torch.scene.scene import build_scene
 from dustraytracer_tpu_torch.scene.settings import (LightParams,
                                                     RenderSettings)
+from dustraytracer_tpu_torch.utils import profiling
 
 WIDTH = HEIGHT = 512
 BOUNCES = 4
@@ -294,7 +295,6 @@ def device_ms(fn, name: str | None = None, reps: int = 5) -> float:
     cannot be queued, the median span of one call (idle gaps included).
     The call is appended to PROFILER_MISSES and named on stderr, so a
     report can say which timer took its number."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -305,9 +305,8 @@ def device_ms(fn, name: str | None = None, reps: int = 5) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if getattr(e, "device_type", None) == DeviceType.CUDA
-              and (name is None or name in e.name)]
+        us = [e.time_range.elapsed_us() for e in profiling.device_ops(prof)
+              if name is None or name in e.name]
         if us and (name is None or len(us) % reps == 0):
             return sum(us) / reps / 1e3
     return _events_ms(fn, name, reps, len(us))
@@ -436,7 +435,6 @@ def _self_device_us(avg) -> float:
 
 
 def profile_section(dev, top: int = 15) -> dict:
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     scene, camera, lights, settings, _ = _setup(*SMOKE_SPHERE, dev)
@@ -446,8 +444,7 @@ def profile_section(dev, top: int = 15) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fwd_ms, bwd_ms = _timed(run)
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kernels = profiling.device_ops(prof)
     by_kernel = defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_kernel[e.name][0] += 1

@@ -42,16 +42,20 @@ from pathlib import Path
 import torch
 
 from dustraytracer_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC
+from dustraytracer_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[2]
 SHAPE = (8, 128)
-LAUNCHES = 0  # add_salt kernel launches in this process
+
+
+def launches() -> int:
+    """add_salt kernel launches in this process."""
+    return profiling.counters("drt.launch.k3").get("drt.launch.k3", 0)
 
 
 def add_salt(lib, x: torch.Tensor) -> torch.Tensor:
     """o = x + SALT by the kernel of `lib`, for a contiguous float32
     tensor on a CUDA card."""
-    global LAUNCHES
     if x.device.type != "cuda" or x.dtype != torch.float32 \
             or not x.is_contiguous():
         raise ValueError("add_salt takes a contiguous float32 CUDA tensor")
@@ -62,7 +66,7 @@ def add_salt(lib, x: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"add_salt launch failed: "
                            f"{lib.drt_cuda_error_string(err).decode()}")
-    LAUNCHES += 1
+    profiling.count("drt.launch.k3")
     return o
 
 
@@ -74,7 +78,6 @@ def add_salt_reference(x: torch.Tensor, salt: float) -> torch.Tensor:
 
 def child(src: Path, build_dir: Path) -> dict:
     """One process's check: load (building if needed), run, compare."""
-    global LAUNCHES
     from dustraytracer_tpu_torch.ops.cuda_build import load_library
     from dustraytracer_tpu_torch.tools.grad_bench import device_ms
 
@@ -91,9 +94,9 @@ def child(src: Path, build_dir: Path) -> dict:
     salt = float(lib.drt_add_salt_value())
     x = torch.arange(SHAPE[0] * SHAPE[1], dtype=torch.float32,
                      device="cuda").reshape(SHAPE)
-    LAUNCHES = 0
+    before = launches()
     y = add_salt(lib, x)
-    launches = LAUNCHES
+    n_launched = launches() - before
     ref = add_salt_reference(x, salt)
     torch.cuda.synchronize()
     blocks = ctypes.c_int(0)
@@ -103,7 +106,7 @@ def child(src: Path, build_dir: Path) -> dict:
             "salt": salt, "ok": bool(torch.equal(y, ref)),
             "max_abs_err": float((y - ref).abs().max()),
             "bits": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest(),
-            "launches": launches, "blocks_per_sm": blocks.value,
+            "launches": n_launched, "blocks_per_sm": blocks.value,
             "ms": device_ms(lambda: add_salt(lib, x), reps=20),
             "plain_ms": device_ms(lambda: add_salt_reference(x, salt),
                                   reps=20)}

@@ -1,70 +1,304 @@
-"""Profiling and metrics (port of utils/profiling.py): the reference's
-cudaEvent kernel timing and the editor's Developer Metrics panel
-(`Renderer.cu:97-108`, `EditorLayer.cpp:100-165`):
+"""Profiling and metrics (port of utils/profiling.py): the program's spans
+and counters, the editor's Developer Metrics panel
+(`EditorLayer.cpp:100-165`) and a torch.profiler exporter.
 
-- `DeviceTimer`: CUDA events around the enqueued work on a card (the
-  reference's paired cudaEvents), the host clock on the CPU, where the
-  work is done when the call returns.
+- `span(name)`: a named interval of host time. It is on while a
+  torch.profiler is recording or inside `recording()`; otherwise it is
+  one shared no-op object returned after a single flag check. An on span
+  goes into a bounded in-memory table (`spans()`, `span_totals()`,
+  `clear()`) with its start and end (`time.perf_counter_ns`), its parent
+  on the same thread and the id of the frame or step that holds it (the
+  outermost `drt.frame` or `drt.step` span). Under a profiler it also
+  enters `record_function(name)`, so it sits on the profiler's timeline
+  with the card's kernels.
+- `chain(name)`: a span with no `with` block, that runs until the next
+  `chain()`, `end_chain()` or the end of its parent; `mark_backward`'s
+  gradient hooks open one where the backward reaches a tensor, and so
+  cut the backward into segments, the last of which ends with the
+  backward.
+- `count(name, n)`: a host counter, always on. `count_device(name, t)`:
+  adds a device scalar into a device accumulator while spans are on,
+  with no host wait. `counters()` reads both.
 - `FrameStats`: running min/avg/max render rate, like the editor panel.
-- `trace()`: a `torch.profiler` trace of a block, written as a Chrome
-  trace into a directory.
+- `trace(log_dir)`: torch.profiler and `recording()` over a block;
+  writes `trace.json` (Chrome trace) and `spans.json`.
+
+Every span and counter name starts with `drt.`.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.autograd.profiler as _prof
+
+MAX_SPANS = 1 << 18  # spans the table holds; older ones are dropped
+UNITS = ("drt.frame", "drt.step")  # spans whose outermost one sets the id
 
 
-class DeviceTimer:
-    """Times blocks of device work: `with timer.time(): ...`. On a card
-    the block's first and last enqueued kernels bound the time (CUDA
-    events on the current stream, synchronised at the end of the block),
-    so host work before the block is not counted; on the CPU the host
-    clock runs around the block."""
+class _Off:
+    """The span returned when spans are off: enters and leaves at once."""
 
-    def __init__(self, device=None):
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
-        self.ms = 0.0
-        self.calls = 0
-        self.total_ms = 0.0
+    __slots__ = ()
 
-    @contextlib.contextmanager
-    def time(self):
-        """Yields a dict for the block's result (kept for the JAX API's
-        `holder["result"]`; nothing here needs it)."""
-        holder = {}
-        if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            try:
-                yield holder
-            finally:
-                end.record()
-                end.synchronize()
-                self._add(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            try:
-                yield holder
-            finally:
-                self._add((time.perf_counter() - t0) * 1e3)
+    def __enter__(self):
+        return self
 
-    def _add(self, ms: float) -> None:
-        self.ms = ms
-        self.total_ms += ms
-        self.calls += 1
+    def __exit__(self, *exc):
+        return False
 
-    @property
-    def avg_ms(self):
-        return self.total_ms / max(self.calls, 1)
+
+_OFF = _Off()
+_recording = 0      # depth of recording() blocks
+# the table, the drops, the ids and the open frame or step: a span's
+# backward children run on autograd's thread
+_lock = threading.Lock()
+_table = collections.deque(maxlen=MAX_SPANS)
+_dropped = 0
+_seq = 0            # span ids
+_unit_seq = 0       # frame or step ids
+_unit = None        # id of the frame or step open now
+_chained = None     # the open chain() span, or None
+_local = threading.local()
+_host = {}          # host counters
+_device = {}        # device counters: name -> {device: accumulator}
+
+
+def enabled() -> bool:
+    """Whether spans are on: a torch.profiler is recording, or a
+    recording() block is open."""
+    return bool(_prof._is_profiler_enabled or _recording)
+
+
+def _stack() -> list:
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+class _Span:
+    __slots__ = ("name", "sid", "parent", "unit", "t0", "rf", "stack",
+                 "tid", "outer")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return self._open(None)
+
+    def _open(self, t0):
+        """Open the span at t0 (now where None)."""
+        global _seq, _unit_seq, _unit
+        stack = _stack()
+        self.stack = stack
+        self.tid = threading.get_ident()
+        self.parent = stack[-1].sid if stack else None
+        with _lock:
+            _seq += 1
+            self.sid = _seq
+            self.outer = self.name in UNITS and _unit is None
+            if self.outer:
+                _unit_seq += 1
+                _unit = _unit_seq
+            self.unit = _unit
+        # the span's own record_function lies inside it, so that its
+        # cost is no part of its parent's self time
+        self.t0 = time.perf_counter_ns() if t0 is None else t0
+        self.rf = None
+        if _prof._is_profiler_enabled:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        stack = self.stack
+        # spans left open above this one (a chain) end with it
+        while stack and stack[-1] is not self:
+            _close(stack[-1])
+        if stack:
+            stack.pop()
+        _finish(self)
+        return False
+
+
+def _finish(s: _Span, t1: int | None = None) -> None:
+    """Record s, ended at t1 (now, after its record_function, where
+    None)."""
+    global _dropped, _unit
+    if s.rf is not None:
+        s.rf.__exit__(None, None, None)
+    if t1 is None:
+        t1 = time.perf_counter_ns()
+    with _lock:
+        if len(_table) == _table.maxlen:
+            _dropped += 1
+        _table.append((s.name, s.t0, t1, s.sid, s.parent, s.unit, s.tid))
+        if s.outer:
+            _unit = None
+
+
+def _close(s: _Span, t1: int | None = None) -> None:
+    """End an open span that is no `with` block (a chain)."""
+    global _chained
+    if s in s.stack:
+        s.stack.remove(s)
+    if _chained is s:
+        _chained = None
+    _finish(s, t1)
+
+
+def span(name: str):
+    """A context manager that records `name` while spans are on, and the
+    shared no-op object otherwise."""
+    if not (_prof._is_profiler_enabled or _recording):
+        return _OFF
+    return _Span(name)
+
+
+def chain(name: str) -> None:
+    """End the open chain span and open `name` on this thread, unless
+    `name` is the one open. Returns None, so it can be a gradient hook's
+    body. Nothing while spans are off."""
+    global _chained
+    if not (_prof._is_profiler_enabled or _recording):
+        return None
+    if _chained is not None and _chained.name == name:
+        return None
+    t = time.perf_counter_ns()
+    if _chained is not None:
+        _close(_chained, t)
+    _chained = _Span(name)._open(t)
+    return None
+
+
+def end_chain() -> None:
+    """End the open chain span, if any."""
+    if _chained is not None:
+        _close(_chained)
+
+
+def mark_backward(name: str, *tensors) -> None:
+    """While spans are on, a gradient hook on each of `tensors` that
+    requires grad opens the chain span `name` when the backward reaches
+    it; the hook returns None, so the gradient is untouched. The hook
+    queues end_chain for the backward's end, so no chain outlives its
+    backward (or the profiler that recorded it)."""
+    if not (_prof._is_profiler_enabled or _recording):
+        return
+
+    def hook(_grad):
+        torch.autograd.Variable._execution_engine.queue_callback(end_chain)
+        chain(name)
+
+    for t in tensors:
+        if t.requires_grad:
+            t.register_hook(hook)
+
+
+@contextlib.contextmanager
+def recording():
+    """Spans on over the block, with no profiler."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+
+
+def spans() -> list:
+    """The table's spans, oldest first: dicts of name, start_ns, end_ns,
+    id, parent (id or None), unit (frame or step id, or None), thread."""
+    keys = ("name", "start_ns", "end_ns", "id", "parent", "unit", "thread")
+    return [dict(zip(keys, row)) for row in list(_table)]
+
+
+def dropped() -> int:
+    """Spans dropped from the full table since the last clear()."""
+    return _dropped
+
+
+def span_totals(rows=None) -> dict:
+    """{name: {"count", "total_ms", "self_ms"}} over the table (or over
+    `rows`, as spans() gives them). Self time is the duration less the
+    durations of the span's children, which run on its thread."""
+    rows = spans() if rows is None else rows
+    child_ns = collections.defaultdict(int)
+    for r in rows:
+        if r["parent"] is not None:
+            child_ns[r["parent"]] += r["end_ns"] - r["start_ns"]
+    out = {}
+    for r in rows:
+        dur = r["end_ns"] - r["start_ns"]
+        t = out.setdefault(r["name"], {"count": 0, "total_ms": 0.0,
+                                       "self_ms": 0.0})
+        t["count"] += 1
+        t["total_ms"] += dur * 1e-6
+        t["self_ms"] += (dur - child_ns.get(r["id"], 0)) * 1e-6
+    return out
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the host counter `name`."""
+    _host[name] = _host.get(name, 0) + n
+
+
+def count_device(name: str, value: torch.Tensor) -> None:
+    """Add the device scalar `value` into the device counter `name`, while
+    spans are on. The sum stays on value's device: no host wait."""
+    if not (_prof._is_profiler_enabled or _recording):
+        return
+    accs = _device.setdefault(name, {})
+    acc = accs.get(value.device)
+    if acc is None:
+        # a plain tensor, so that it can be added to in and out of
+        # inference_mode
+        with torch.inference_mode(False):
+            acc = torch.zeros((), dtype=value.dtype, device=value.device)
+        accs[value.device] = acc
+    acc.add_(value.detach())
+
+
+def counters(prefix: str = "drt.") -> dict:
+    """The counters whose name starts with `prefix`: host counters, and
+    device counters read back (a host wait where there are any)."""
+    out = {k: v for k, v in _host.items() if k.startswith(prefix)}
+    for k, accs in _device.items():
+        if k.startswith(prefix):
+            out[k] = sum(a.item() for a in accs.values())
+    return out
+
+
+def clear() -> None:
+    """Empty the span table and reset every counter."""
+    global _dropped
+    end_chain()
+    with _lock:
+        _table.clear()
+        _dropped = 0
+    _host.clear()
+    _device.clear()
+
+
+def device_ops(prof) -> list:
+    """The device operations (kernels, copies, fills) of a finished
+    torch.profiler: its CUDA events less the annotations that
+    record_function, and so every span, puts on the device's timeline."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 @dataclass
@@ -107,21 +341,21 @@ class FrameStats:
 
 @contextlib.contextmanager
 def trace(log_dir: str = "drt_trace"):
-    """torch.profiler over the block (CPU, and the card's kernels when
-    there is one); writes `log_dir/trace.json` (chrome://tracing,
-    Perfetto) when the block ends and yields the profiler."""
+    """torch.profiler (CPU, and the card's kernels when there is one) and
+    recording() over the block; writes `log_dir/trace.json`
+    (chrome://tracing, Perfetto) and `log_dir/spans.json` (the block's
+    spans, their totals and the counters) when the block ends, and
+    yields the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    first = _seq + 1
+    with recording(), torch.profiler.profile(activities=activities) as prof:
         yield prof
+    end_chain()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def estimate_rays(width: int, height: int, spp: int, bounces: int,
-                  sun_enabled: bool = True) -> int:
-    """Upper-bound traced-ray count for throughput metrics: path segments
-    plus one shadow ray per bounce when sun NEE is on."""
-    per_path = bounces * (2 if sun_enabled else 1)
-    return width * height * spp * per_path
+    rows = [r for r in spans() if r["id"] >= first]
+    with open(os.path.join(log_dir, "spans.json"), "w") as fh:
+        json.dump({"spans": rows, "totals": span_totals(rows),
+                   "counters": counters(), "dropped": _dropped}, fh)

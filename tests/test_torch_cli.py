@@ -87,19 +87,18 @@ def test_stats_cpu_matches_jax_without_cuda(glb, no_cuda, capsys):
 
 
 def test_render_cpu_runs_without_cuda(glb, tmp_path, no_cuda, capsys):
-    from dustraytracer_tpu_torch.ops import traverse_pallas as tp
-    from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+    from dustraytracer_tpu_torch.utils import profiling
 
     out = tmp_path / "cpu.png"
     argv = [str(glb) if a == "soup.glb" else str(out) if a == "x.png" else a
             for a in RENDER]
-    launches = (ts.LAUNCHES, ts.EMIT_LAUNCHES, tp.LAUNCHES)
+    launches = profiling.counters("drt.launch.")
     assert cli.main(argv) == 0
     metrics = json.loads(capsys.readouterr().out)
     assert metrics["device"] == "cpu" and metrics["triangles"] == 200
     assert metrics["size"] == [16, 12] and metrics["spp"] == 1
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
-    assert (ts.LAUNCHES, ts.EMIT_LAUNCHES, tp.LAUNCHES) == launches
+    assert profiling.counters("drt.launch.") == launches
 
 
 def test_render_cpu_equals_device_cpu(glb, tmp_path):

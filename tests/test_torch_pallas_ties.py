@@ -23,6 +23,7 @@ from dustraytracer_tpu.ops.traverse_pallas import (
 from dustraytracer_tpu.scene.scene import build_scene
 from dustraytracer_tpu_torch import interop
 from dustraytracer_tpu_torch.ops import traverse_pallas as tp
+from dustraytracer_tpu_torch.utils import profiling
 from tests.util_scenes import make_random_tri_doc
 
 T_RTOL = 1e-4  # tests/test_sweep.py:45-47
@@ -89,10 +90,11 @@ def test_twin_keeps_the_pallas_tie_rules(k, mode):
     anyhit = mode == "anyhit"
     jr = j_pallas(jcb, jnp.asarray(o), jnp.asarray(d), anyhit=anyhit,
                   interpret=True)
-    launches = tp.LAUNCHES
+    launches = profiling.counters("drt.launch.")
     tr = tp.traverse_cluster_pallas(tcb, torch.from_numpy(o),
                                     torch.from_numpy(d), anyhit=anyhit)
-    assert tp.LAUNCHES == launches  # CPU tensors run the twin
+    # CPU tensors run the twin
+    assert profiling.counters("drt.launch.") == launches
     hit = tr["hit_idx"].numpy()
     np.testing.assert_array_equal(hit, np.asarray(jr["hit_idx"]))
     m = hit >= 0
@@ -114,11 +116,11 @@ def test_wrapper_rejects_clusters_of_no_triangle():
 
     tcb = _tables(16)[1]
     o, d = (torch.from_numpy(x) for x in _aimed(_soup_pos(), [0, 1], 3))
-    launches = tp.LAUNCHES
+    launches = profiling.counters("drt.launch.")
     for fn in (tp.traverse_cluster_pallas, tp.traverse_cluster_pallas_global):
         with pytest.raises(ValueError, match="K = 0"):
             fn(dataclasses.replace(tcb, k=0), o, d)
-    assert tp.LAUNCHES == launches
+    assert profiling.counters("drt.launch.") == launches
 
 
 def test_global_instance_runs_the_twin_on_the_cpu():

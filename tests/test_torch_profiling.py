@@ -1,6 +1,7 @@
 """The port's profiling helpers (utils/profiling.py) against the JAX
-package's: FrameStats' report for the same frame times, estimate_rays,
-DeviceTimer on the CPU, and trace() writing a Chrome trace."""
+package's: FrameStats' report for the same frame times, and trace()
+writing a Chrome trace. The spans and counters are in
+test_torch_spans.py."""
 
 import itertools
 import json
@@ -30,21 +31,6 @@ def test_frame_stats_report_matches_jax(monkeypatch, frames):
     want = _report(j_prof, monkeypatch, frames)
     got = _report(profiling, monkeypatch, frames)
     assert got == want
-
-
-@pytest.mark.parametrize("args", [(64, 48, 1, 2, True), (512, 512, 8, 4, False),
-                                  (7, 3, 0, 5, True)])
-def test_estimate_rays_matches_jax(args):
-    assert profiling.estimate_rays(*args) == j_prof.estimate_rays(*args)
-
-
-def test_device_timer_on_cpu():
-    timer = profiling.DeviceTimer("cpu")
-    for _ in range(3):
-        with timer.time() as holder:
-            holder["result"] = torch.ones(256, 256) @ torch.ones(256, 256)
-    assert timer.calls == 3 and timer.ms > 0.0
-    assert timer.avg_ms == pytest.approx(timer.total_ms / 3)
 
 
 def test_trace_writes_chrome_trace(tmp_path):

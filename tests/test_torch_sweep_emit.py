@@ -14,6 +14,7 @@ from dustraytracer_tpu.ops.traverse_sweep import (
 from dustraytracer_tpu.scene.scene import build_scene
 from dustraytracer_tpu_torch import interop
 from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+from dustraytracer_tpu_torch.utils import profiling
 from tests.util_scenes import make_random_tri_doc
 
 EMIT_KEYS = ("u", "v", "uv", "face_nrm", "mat")
@@ -120,12 +121,12 @@ def test_emit_without_attribute_tables_raises(emit_case):
     bare = dataclasses.replace(_port_cluster(js), uv=None)
     o = torch.zeros((4, 3))
     d = torch.ones((4, 3))
-    launches = (ts.LAUNCHES, ts.EMIT_LAUNCHES)
+    launches = profiling.counters("drt.launch.")
     with pytest.raises(ValueError, match="emit_attrs requires"):
         ts.traverse_cluster_sweep(bare, o, d, emit_attrs=True)
     with pytest.raises(ValueError, match="emit_attrs requires"):
         ts.device_attr_table(bare)
-    assert (ts.LAUNCHES, ts.EMIT_LAUNCHES) == launches
+    assert profiling.counters("drt.launch.") == launches
 
 
 def test_attr_table_layout(emit_case):

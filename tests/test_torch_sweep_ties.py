@@ -25,6 +25,7 @@ from dustraytracer_tpu.ops.traverse_sweep import (
 from dustraytracer_tpu.scene.scene import build_scene
 from dustraytracer_tpu_torch import interop
 from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+from dustraytracer_tpu_torch.utils import profiling
 from tests.util_scenes import make_random_tri_doc
 
 T_RTOL = 1e-4  # tests/test_sweep.py:45-47
@@ -105,7 +106,7 @@ def test_ties_in_one_cluster_go_to_the_lowest_id():
 @pytest.mark.parametrize("k", [8, 16, 32])
 def test_twin_matches_pallas_at_k(k, mode):
     jcb, tcb, pos, _ = _tables(k)
-    launches = ts.LAUNCHES
+    launches = profiling.counters("drt.launch.")
     if mode == "closest":
         tris = np.random.default_rng(40 + k).integers(0, 700, 500)
         o, d = _aimed(pos, tris, 41 + k)
@@ -124,14 +125,15 @@ def test_twin_matches_pallas_at_k(k, mode):
         occ = tr["hit_idx"].numpy() >= 0
         np.testing.assert_array_equal(occ, np.asarray(jr["hit_idx"]) >= 0)
         assert occ.any() and not occ.all()
-    assert ts.LAUNCHES == launches  # CPU tensors never launch the kernel
+    # CPU tensors never launch the kernel
+    assert profiling.counters("drt.launch.") == launches
 
 
 @pytest.mark.parametrize("k", [0, ts.MAX_K + 1])
 def test_wrapper_rejects_unsupported_k(k):
     tcb = _tables(16)[1]
     o, d = (torch.from_numpy(x) for x in _rays(64, 3))
-    launches = ts.LAUNCHES
+    launches = profiling.counters("drt.launch.")
     with pytest.raises(ValueError, match="K ="):
         ts.traverse_cluster_sweep(dataclasses.replace(tcb, k=k), o, d)
-    assert ts.LAUNCHES == launches
+    assert profiling.counters("drt.launch.") == launches

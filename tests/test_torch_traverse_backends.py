@@ -33,6 +33,7 @@ from dustraytracer_tpu_torch.scene.camera import make_camera
 from dustraytracer_tpu_torch.scene.settings import (LightParams,
                                                     RenderSettings)
 from dustraytracer_tpu_torch.utils import roofline
+from dustraytracer_tpu_torch.utils import profiling
 from tests.util_scenes import make_random_tri_doc
 
 T_RTOL = 1e-5  # tests/test_cluster.py:88-92
@@ -225,10 +226,11 @@ def test_pallas_twin_matches_interpret(soup, anyhit):
     o, d = _aimed_rays(999, 15)
     jr = j_pallas(jcb, jnp.asarray(o), jnp.asarray(d), anyhit=anyhit,
                   interpret=True)
-    launches = tp.LAUNCHES
+    launches = profiling.counters("drt.launch.")
     tr = tp.traverse_cluster_pallas(tcb, torch.from_numpy(o),
                                     torch.from_numpy(d), anyhit=anyhit)
-    assert tp.LAUNCHES == launches  # CPU tensors run the twin
+    # CPU tensors run the twin
+    assert profiling.counters("drt.launch.") == launches
     m = _same_hits(tr, jr)
     assert 100 < m.sum() < 999
     assert not tr["visits"].any()
@@ -270,9 +272,9 @@ def test_sweep_counters_in_the_twin(soup, anyhit):
     o[::7] = 3.0e37  # parked lanes, as the integrator parks dead rays
     o, d = torch.from_numpy(o), torch.from_numpy(d)
     plain = ts.traverse_cluster_sweep(tcb, o, d, anyhit=anyhit)
-    launches = ts.COUNT_LAUNCHES
+    launches = profiling.counters("drt.launch.")
     got = ts.traverse_cluster_sweep(tcb, o, d, anyhit=anyhit, counters=True)
-    assert ts.COUNT_LAUNCHES == launches
+    assert profiling.counters("drt.launch.") == launches
     for key in ("hit_idx", "t", "visits"):
         assert torch.equal(got[key], plain[key]), key
     n_warps = -(-999 // 32)

@@ -14,6 +14,7 @@ from dustraytracer_tpu.ops.traverse_sweep import (
 from dustraytracer_tpu.scene.scene import build_scene
 from dustraytracer_tpu_torch import interop
 from dustraytracer_tpu_torch.ops import traverse_sweep as ts
+from dustraytracer_tpu_torch.utils import profiling
 from tests.util_scenes import make_random_tri_doc
 
 
@@ -56,7 +57,7 @@ def _run(jcb, tcb, o, d, **kw):
 
 @pytest.mark.parametrize("rays", ["test_sweep", "aimed"])
 def test_twin_closest_matches_pallas(soup, rays):
-    launches = ts.LAUNCHES
+    launches = profiling.counters("drt.launch.")
     # 999: deliberately not a tile multiple
     o, d = _rays(999, 7) if rays == "test_sweep" else _aimed_rays(soup[0],
                                                                   999, 8)
@@ -71,7 +72,8 @@ def test_twin_closest_matches_pallas(soup, rays):
     np.testing.assert_allclose(tr["t"].numpy()[m], np.asarray(jr["t"])[m],
                                rtol=1e-4)
     assert (tr["visits"].numpy() >= 1).all()
-    assert ts.LAUNCHES == launches  # CPU tensors never launch the kernel
+    # CPU tensors never launch the kernel
+    assert profiling.counters("drt.launch.") == launches
 
 
 @pytest.mark.parametrize("t_max", [None, 0.5])
@@ -127,7 +129,7 @@ def test_wrapper_rejects_bad_input(soup, bad):
         o, d = o.to("meta"), d.to("meta")
     else:
         kw["t_max"] = torch.ones(5)
-    launches = ts.LAUNCHES
+    launches = profiling.counters("drt.launch.")
     with pytest.raises((TypeError, ValueError)):
         ts.traverse_cluster_sweep(tcb, o, d, **kw)
-    assert ts.LAUNCHES == launches
+    assert profiling.counters("drt.launch.") == launches

@@ -40,6 +40,13 @@ def soup():
     return cb, o, d, inside
 
 
+def _launches(prefix: str) -> int:
+    """Kernel launches counted under names that start with `prefix`."""
+    from dustraytracer_tpu_torch.utils import profiling
+
+    return sum(profiling.counters(prefix).values())
+
+
 def _equal(got: dict, want: dict, what: str):
     assert got.keys() == want.keys(), what
     for key in got:
@@ -54,10 +61,10 @@ def test_sweep_kernel_matches_twin(soup, mode):
 
     cb, o, d, inside = soup
     kw = TIE_CALLS[mode]
-    before = ts.LAUNCHES + ts.EMIT_LAUNCHES + ts.COUNT_LAUNCHES
+    before = _launches("drt.launch.k1")  # k1, k1_emit and k1_counters
     got = ts.traverse_cluster_sweep(cb, o, d, **kw)
     torch.cuda.synchronize()
-    assert ts.LAUNCHES + ts.EMIT_LAUNCHES + ts.COUNT_LAUNCHES == before + 1
+    assert _launches("drt.launch.k1") == before + 1
     _equal(got, ts.traverse_cluster_sweep_reference(cb, o, d, **kw),
            f"sweep {mode}")
     if mode == "plain":  # a ray tied inside one cluster takes the lower id
@@ -75,10 +82,10 @@ def test_pallas_kernel_matches_twin(soup, instance, anyhit):
     call = {"shared": tp.traverse_cluster_pallas,
             "global": tp.traverse_cluster_pallas_global}[instance]
     assert tp.launch_config(cb, o.shape[0])["node_table"] == "shared"
-    before = tp.LAUNCHES
+    before = _launches("drt.launch.k2")
     got = call(cb, o, d, anyhit=anyhit)
     torch.cuda.synchronize()
-    assert tp.LAUNCHES == before + 1
+    assert _launches("drt.launch.k2") == before + 1
     _equal(got, tp.traverse_cluster_pallas_reference(cb, o, d, anyhit=anyhit),
            f"pallas {instance} anyhit={anyhit}")
 
@@ -108,10 +115,10 @@ def test_rows_grad_kernel_matches_twin(case):
     from dustraytracer_tpu_torch.ops import rows
 
     grad, idx, n_rows = rows_inputs(*ROW_CASES[case], seed=7)
-    before = rows.LAUNCHES
+    before = _launches("drt.launch.k4")
     rows.rows_grad(grad, idx, n_rows)
     torch.cuda.synchronize()
-    assert rows.LAUNCHES == before + 1
+    assert _launches("drt.launch.k4") == before + 1
     res = check_rows_kernel(grad, idx, n_rows)
     assert res["instance"] == ("plan_free" if rows.is_small(
         n_rows, grad.shape[1]) else "planned")
