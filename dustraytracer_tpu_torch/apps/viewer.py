@@ -25,8 +25,9 @@ Run:  python -m dustraytracer_tpu_torch.apps.viewer --scene scene.glb \\
 Without --cpu it renders on the card, and raises without one.
 
 Architecture: one render thread owns all device work (one sample per
-loop under torch.inference_mode(), added into the film and synchronised
-before the image is read); the HTTP threads only swap state and enqueue
+loop through film_accumulate, replayed as CUDA graphs on a card, and
+synchronised before the image is read); the HTTP threads only swap
+state and enqueue
 mutations under a lock. Any change resets accumulation, and a frame
 rendered while the state changed is dropped — the reference's "every
 ImGui widget write resets accumulation".
@@ -108,10 +109,9 @@ class ViewerState:
             raise
 
     def _loop(self):
-        from dustraytracer_tpu_torch.render.film import (film_add,
+        from dustraytracer_tpu_torch.render.film import (film_accumulate,
                                                          film_image,
                                                          film_init)
-        from dustraytracer_tpu_torch.render.integrator import render_sample
         from dustraytracer_tpu_torch.scene.settings import LightParams
         from dustraytracer_tpu_torch.utils.image import save_png
         from dustraytracer_tpu_torch.utils.profiling import FrameStats
@@ -154,10 +154,8 @@ class ViewerState:
 
             self.frame_stats.begin()
             t0 = time.perf_counter()
-            with torch.inference_mode():
-                film = film_add(film, render_sample(
-                    self.scene, cam, lights, film.frame, width=w, height=h,
-                    settings=settings))
+            film = film_accumulate(self.scene, cam, lights, film, 1,
+                                   width=w, height=h, settings=settings)
             if cuda:
                 torch.cuda.synchronize(dev)
             ms = (time.perf_counter() - t0) * 1e3

@@ -20,19 +20,29 @@ import torch
 _MASK = 0xFFFFFFFF
 
 
-def pcg_hash(x: torch.Tensor) -> torch.Tensor:
-    """PCG output permutation on uint32 words carried in int64."""
-    x = x.to(torch.int64) & _MASK
+def _pcg(x):
+    """The PCG output permutation on uint32 words: on an int64 tensor or
+    a Python int, the same integer arithmetic."""
+    x = x & _MASK
     state = (x * 747796405 + 2891336453) & _MASK
     word = (((state >> ((state >> 28) + 4)) ^ state) * 277803737) & _MASK
     return (word >> 22) ^ word
 
 
-def seed_pixels(pixel_idx: torch.Tensor, frame_idx: int) -> torch.Tensor:
-    """Decorrelated per-pixel stream heads: pcg(p ^ (pcg(f) + golden))."""
-    f = torch.tensor(int(frame_idx) & _MASK, dtype=torch.int64,
-                     device=pixel_idx.device)
-    salt = (pcg_hash(f) + 0x9E3779B9) & _MASK
+def pcg_hash(x: torch.Tensor) -> torch.Tensor:
+    """PCG output permutation on uint32 words carried in int64."""
+    return _pcg(x.to(torch.int64))
+
+
+def seed_pixels(pixel_idx: torch.Tensor, frame_idx) -> torch.Tensor:
+    """Decorrelated per-pixel stream heads: pcg(p ^ (pcg(f) + golden)).
+    The frame is a Python int, whose salt is computed on the host, or a
+    0-d int64 tensor on the pixels' device (a CUDA graph's input), whose
+    salt is computed there; neither makes the host wait."""
+    if isinstance(frame_idx, torch.Tensor):
+        salt = (pcg_hash(frame_idx) + 0x9E3779B9) & _MASK
+    else:
+        salt = (_pcg(int(frame_idx)) + 0x9E3779B9) & _MASK
     return pcg_hash(pixel_idx.to(torch.int64) ^ salt)
 
 

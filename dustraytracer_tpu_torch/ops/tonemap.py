@@ -11,10 +11,16 @@ def _uncharted2_partial(x):
     return ((x * (a * x + c * b) + d * e) / (x * (a * x + b) + d * f)) - e / f
 
 
+# 1 / the white point's curve, rounded to float32 as the float32 tensor
+# computation rounds it; a Python float, so the multiply copies nothing
+# from the host
+INV_WHITE = float(1.0 / _uncharted2_partial(
+    torch.tensor(11.2, dtype=torch.float32)))
+
+
 def uncharted2_filmic(color: torch.Tensor, exposure=2.0) -> torch.Tensor:
     curr = _uncharted2_partial(color * exposure)
-    white = _uncharted2_partial(torch.tensor(11.2, dtype=torch.float32))
-    return curr * (1.0 / white).to(color.device)
+    return curr * INV_WHITE
 
 
 def gamma_correct(color: torch.Tensor) -> torch.Tensor:

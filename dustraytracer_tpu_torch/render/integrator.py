@@ -7,7 +7,10 @@ a miss, multiplies the throughput by the (textured) albedo, adds the sun
 through an any-hit shadow ray, and bounces diffusely; finally tonemap
 and gamma. shading="pbr" adds emission, a metal lobe and glass
 (refraction, Fresnel, frosted fuzz); soft_edges > 0 makes silhouettes
-differentiable with one continuation trace per segment. DEBUG mode
+differentiable with one continuation trace per segment. The sample is a
+list of stages (sample_stages: raygen, each segment's trace, shade, NEE
+and scatter, post) that render_pixels runs eagerly and
+render/graphed.py replays as CUDA graphs. DEBUG mode
 traces camera rays once and returns a debug view (albedo, normal,
 barycentrics, uvs or BVH visit heat).
 Traversal is picked per scene and settings.traversal (`_make_tracers`):
@@ -94,7 +97,8 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """jnp.clip: maximum, then minimum. At a bound the gradient is split
     half and half, where torch.clamp passes all of it; a weight exactly
     at a bound (1 - metallic with metallic 0) is common."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def _bary_min(bary: torch.Tensor) -> torch.Tensor:
@@ -400,6 +404,22 @@ def _alpha_retrace_tracers(scene, fast_closest, rounds: int):
     return closest, anyhit
 
 
+def tracer_kind(scene, settings: RenderSettings) -> str:
+    """The traversal backend that _make_tracers picks: "brute", "sweep",
+    "cluster" or "gather"."""
+    cb = scene.cluster
+    trav = settings.traversal
+    if trav in ("cluster", "brute", "sweep") and cb is None:
+        raise ValueError(f"settings.traversal={trav!r} but the scene was "
+                         "built without cluster tables (cluster_k=None)")
+    if cb is None or trav == "gather":
+        return "gather"
+    if trav == "brute" or (trav == "auto" and cb.n_clusters * cb.k
+                           <= settings.brute_max_tris):
+        return "brute"
+    return "sweep" if trav in ("auto", "sweep") else "cluster"
+
+
 def _make_tracers(scene, settings: RenderSettings):
     """Pick the traversal backend from the scene and settings.traversal:
 
@@ -417,15 +437,10 @@ def _make_tracers(scene, settings: RenderSettings):
     path re-traces past transparent hits.
     Both tracers detach their rays and run under no_grad."""
     cb = scene.cluster
-    trav = settings.traversal
-    if trav in ("cluster", "brute", "sweep") and cb is None:
-        raise ValueError(f"settings.traversal={trav!r} but the scene was "
-                         "built without cluster tables (cluster_k=None)")
-    use_cluster = cb is not None and trav != "gather"
-    use_brute = use_cluster and (
-        trav == "brute" or (trav == "auto" and cb.n_clusters * cb.k
-                            <= settings.brute_max_tris))
-    use_sweep = use_cluster and not use_brute and trav in ("auto", "sweep")
+    kind = tracer_kind(scene, settings)
+    use_cluster = kind != "gather"
+    use_brute = kind == "brute"
+    use_sweep = kind == "sweep"
     emit = settings.shade_fetch == "kernel"
     if emit and not use_sweep:
         raise ValueError("shade_fetch='kernel' requires the sweep "
@@ -544,7 +559,7 @@ def _pbr_bounce(sh, matd, direction, ball, bounce_dir, new_origin,
     rng, u_glass = random_float(rng)
     rng, u_fresnel = random_float(rng)
     transm = matd["transmission"]
-    ior = torch.maximum(matd["ior"], matd["ior"].new_tensor(1.0 + 1e-4))
+    ior = torch.maximum(matd["ior"], matd["ior"].new_full((), 1.0 + 1e-4))
     is_glass = ~is_metal & (u_glass < transm.detach())
     eta = torch.where(sh["front_face"], 1.0 / ior, ior)
     cos_in = _clip(-(d_n * nrm).sum(dim=-1), 0.0, 1.0)
@@ -552,7 +567,7 @@ def _pbr_bounce(sh, matd, direction, ball, bounce_dir, new_origin,
     tir = k < 0.0
     # double where: sqrt'(0) = inf would turn the TIR lanes' zero
     # cotangent into NaN in d/d(ior)
-    k_safe = torch.where(tir, 1.0, torch.maximum(k, k.new_tensor(0.0)))
+    k_safe = torch.where(tir, 1.0, torch.maximum(k, k.new_full((), 0.0)))
     refr = (eta[:, None] * (d_n + cos_in[:, None] * nrm)
             - torch.sqrt(k_safe)[:, None] * nrm)
     r0 = (1.0 - eta) / (1.0 + eta)
@@ -586,111 +601,184 @@ def _bounce_spans(i: int) -> SimpleNamespace:
                            bwd=f"drt.bwd.b{i}")
 
 
-def _segment(scene, lights: LightParams, settings: RenderSettings, tracers,
-             carry, bounce_idx: int):
-    """One path segment for all rays. The RNG stream is drawn in the JAX
-    package's order: u_edge, sun jitter, u_rr, ball, the cosine sample,
-    u_lobe, u_glass, u_fresnel. Spans: drt.b{i}.trace, .shade, .nee and
-    .scatter."""
-    origin, direction, throughput, light, alive, rng = carry
-    trace_closest, trace_anyhit = tracers
-    pbr = settings.shading == "pbr"
-    names = _bounce_spans(bounce_idx)
+def _trace(scene, lights, settings, tracers, s) -> dict:
+    """Stage drt.b{i}.trace: the closest hits of the live lanes (dead
+    lanes park far away: traversal only, shading sees `origin`), and the
+    soft edges' continuation. Adds res, hit_idx, miss, live_hit."""
+    s = dict(s)
+    origin, direction, alive = s["origin"], s["direction"], s["alive"]
+    o_live = torch.where(alive[:, None], origin.detach(), _PARK)
+    res = tracers[0](o_live, direction)
+    hit_idx = torch.where(alive, res["hit_idx"], -1)
+    if settings.soft_edges > 0.0:
+        s["rng"], u_edge = random_float(s["rng"])
+        hit_idx, s["throughput"], s["light"] = _soft_edges(
+            tracers[0], scene, lights, settings, origin, direction, o_live,
+            res, alive, hit_idx, u_edge, s["throughput"], s["light"])
+    miss = hit_idx < 0
+    s.update(res=res, hit_idx=hit_idx, miss=miss, live_hit=alive & ~miss)
+    return s
 
-    with profiling.span(names.trace):
-        # dead lanes park far away (traversal only: shading sees `origin`)
-        o_live = torch.where(alive[:, None], origin.detach(), _PARK)
-        res = trace_closest(o_live, direction)
-        hit_idx = torch.where(alive, res["hit_idx"], -1)
-        if settings.soft_edges > 0.0:
-            rng, u_edge = random_float(rng)
-            hit_idx, throughput, light = _soft_edges(
-                trace_closest, scene, lights, settings, origin, direction,
-                o_live, res, alive, hit_idx, u_edge, throughput, light)
-        miss = hit_idx < 0
-        live_hit = alive & ~miss
 
-    with profiling.span(names.shade):
-        # sky on miss
-        sky = _sky(direction, lights)
-        light = light + torch.where((alive & miss)[:, None],
-                                    throughput * sky * lights.sky_intensity,
-                                    0.0)
+def _shade(scene, lights, settings, count_lanes, s) -> dict:
+    """Stage drt.b{i}.shade: sky on a miss, the hit and material fetches,
+    emission (pbr), the albedo. Adds sh, matd, new_origin. With
+    count_lanes, while spans are on, counts the material fetch's lanes
+    and live lanes for K4."""
+    s = dict(s)
+    origin, direction = s["origin"], s["direction"]
+    alive, miss, live_hit = s["alive"], s["miss"], s["live_hit"]
+    throughput, light = s["throughput"], s["light"]
+    sky = _sky(direction, lights)
+    light = light + torch.where((alive & miss)[:, None],
+                                throughput * sky * lights.sky_intensity, 0.0)
+    if settings.shade_fetch == "kernel":
+        sh = _shade_from_kernel(scene, origin, direction, s["hit_idx"],
+                                s["res"])
+    else:
+        sh = shade_hits(scene, origin, direction, s["hit_idx"],
+                        smooth=settings.smooth_shading)
+    matd = _fetch_material(scene, sh["material"])
+    if count_lanes and profiling.enabled():
+        profiling.count("drt.k4.lanes", live_hit.shape[0])
+        profiling.count_device("drt.k4.live_lanes", live_hit.sum())
+    if settings.shading == "pbr":  # emission, before the albedo multiply
+        light = light + torch.where(live_hit[:, None],
+                                    throughput * matd["emissive"], 0.0)
+    alb = _albedo(scene, matd, sh["uv"],
+                  bilinear=settings.tex_filter == "bilinear")
+    throughput = torch.where(live_hit[:, None], throughput * alb, throughput)
+    s.update(sh=sh, matd=matd, throughput=throughput, light=light,
+             new_origin=sh["world_position"] + sh["normal"] * 1e-3)
+    return s
 
-        if settings.shade_fetch == "kernel":
-            sh = _shade_from_kernel(scene, origin, direction, hit_idx, res)
+
+def _nee(scene, lights, settings, tracers, s) -> dict:
+    """Stage drt.b{i}.nee: the sun's shadow ray from each live hit."""
+    s = dict(s)
+    live_hit, throughput, matd = s["live_hit"], s["throughput"], s["matd"]
+    sun_pos = lights.sun_position()
+    sun_col = lights.sun_color * lights.sun_intensity
+    s["rng"], jit_vec = random_unit_vec3(s["rng"])
+    shadow_dir = sun_pos[None, :] + jit_vec * 1.5
+    nee_o = torch.where(live_hit[:, None], s["new_origin"].detach(), _PARK)
+    occluded = tracers[1](nee_o, shadow_dir)
+    contrib = sun_col[None, :] * throughput
+    if settings.shading == "pbr":
+        # only the (1 - transmission) reflected share of a dielectric
+        # sees the sun; the shadow ray still treats glass as opaque
+        contrib = contrib * (1.0 - (1.0 - matd["metallic"])
+                             * matd["transmission"])[:, None]
+    if settings.nee_cosine:
+        d_n = shadow_dir / _norm(shadow_dir)
+        contrib = contrib * torch.clamp_min(
+            (s["sh"]["normal"] * d_n).sum(dim=-1), 0.0)[:, None]
+    s["light"] = s["light"] + torch.where((live_hit & ~occluded)[:, None],
+                                          contrib, 0.0)
+    return s
+
+
+def _scatter(settings, bounce_idx, s) -> dict:
+    """Stage drt.b{i}.scatter: russian roulette, the diffuse (or cosine)
+    bounce, the pbr lobes. Returns the next segment's carry: origin,
+    direction, throughput, light, alive, rng."""
+    sh, live_hit, rng = s["sh"], s["live_hit"], s["rng"]
+    throughput, new_origin = s["throughput"], s["new_origin"]
+    if settings.russian_roulette:
+        rng, u_rr = random_float(rng)
+        p = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
+        if bounce_idx >= settings.rr_start_bounce:
+            survive = u_rr < p
+            throughput = throughput * torch.where(survive, 1.0 / p,
+                                                  1.0)[:, None]
         else:
-            sh = shade_hits(scene, origin, direction, hit_idx,
-                            smooth=settings.smooth_shading)
-        matd = _fetch_material(scene, sh["material"])
-        if profiling.enabled():  # the material fetch's lanes, for K4
-            profiling.count("drt.k4.lanes", live_hit.shape[0])
-            profiling.count_device("drt.k4.live_lanes", live_hit.sum())
-        if pbr:  # emission, before the albedo multiply
-            light = light + torch.where(live_hit[:, None],
-                                        throughput * matd["emissive"], 0.0)
-        alb = _albedo(scene, matd, sh["uv"],
-                      bilinear=settings.tex_filter == "bilinear")
-        throughput = torch.where(live_hit[:, None], throughput * alb,
-                                 throughput)
-        new_origin = sh["world_position"] + sh["normal"] * 1e-3
+            survive = torch.ones_like(live_hit)
+        alive = live_hit & survive
+    else:
+        alive = live_hit
 
-    # sun NEE shadow ray
-    if settings.enable_sunlight:
-        with profiling.span(names.nee):
-            sun_pos = lights.sun_position()
-            sun_col = lights.sun_color * lights.sun_intensity
-            rng, jit_vec = random_unit_vec3(rng)
-            shadow_dir = sun_pos[None, :] + jit_vec * 1.5
-            nee_o = torch.where(live_hit[:, None], new_origin.detach(),
-                                _PARK)
-            occluded = trace_anyhit(nee_o, shadow_dir)
-            contrib = sun_col[None, :] * throughput
-            if pbr:
-                # only the (1 - transmission) reflected share of a
-                # dielectric sees the sun; the shadow ray still treats
-                # glass as opaque
-                contrib = contrib * (1.0 - (1.0 - matd["metallic"])
-                                     * matd["transmission"])[:, None]
-            if settings.nee_cosine:
-                d_n = shadow_dir / _norm(shadow_dir)
-                contrib = contrib * torch.clamp_min(
-                    (sh["normal"] * d_n).sum(dim=-1), 0.0)[:, None]
-            light = light + torch.where((live_hit & ~occluded)[:, None],
-                                        contrib, 0.0)
-
-    with profiling.span(names.scatter):
-        # russian roulette
-        if settings.russian_roulette:
-            rng, u_rr = random_float(rng)
-            p = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
-            if bounce_idx >= settings.rr_start_bounce:
-                survive = u_rr < p
-                throughput = throughput * torch.where(survive, 1.0 / p,
-                                                      1.0)[:, None]
-            else:
-                survive = torch.ones_like(live_hit)
-            alive = live_hit & survive
-        else:
-            alive = live_hit
-
-        # diffuse bounce: normal + in-ball sample (or cosine-weighted)
-        rng, ball = random_in_ball(rng)
-        bounce_dir = sh["normal"] + ball
-        if settings.cosine_weighted:
-            rng, sph = random_unit_vec3(rng)
-            bounce_dir = sh["normal"] + sph
-            bounce_dir = bounce_dir / torch.clamp_min(_norm(bounce_dir),
-                                                      1e-8)
-        if pbr:
-            bounce_dir, new_origin, throughput, rng = _pbr_bounce(
-                sh, matd, direction, ball, bounce_dir, new_origin,
-                throughput, live_hit, rng)
-
+    # diffuse bounce: normal + in-ball sample (or cosine-weighted)
+    rng, ball = random_in_ball(rng)
+    bounce_dir = sh["normal"] + ball
+    if settings.cosine_weighted:
+        rng, sph = random_unit_vec3(rng)
+        bounce_dir = sh["normal"] + sph
+        bounce_dir = bounce_dir / torch.clamp_min(_norm(bounce_dir), 1e-8)
+    if settings.shading == "pbr":
+        bounce_dir, new_origin, throughput, rng = _pbr_bounce(
+            sh, s["matd"], s["direction"], ball, bounce_dir, new_origin,
+            throughput, live_hit, rng)
     # the backward's segment of this bounce starts where its outputs'
     # gradients are complete
-    profiling.mark_backward(names.bwd, throughput, light)
-    return new_origin, bounce_dir, throughput, light, alive, rng
+    profiling.mark_backward(_bounce_spans(bounce_idx).bwd, throughput,
+                            s["light"])
+    return {"origin": new_origin, "direction": bounce_dir,
+            "throughput": throughput, "light": s["light"], "alive": alive,
+            "rng": rng}
+
+
+def _post(settings, camera, color):
+    """Tonemap and gamma, where on."""
+    if settings.enable_tonemap:
+        color = uncharted2_filmic(color, camera.exposure)
+    if settings.enable_gamma:
+        color = gamma_correct(color)
+    return color
+
+
+def _primary(camera, width, height, frame_idx, pixel_ids):
+    """The stream heads and the camera rays: (rng, origin, direction)."""
+    rng = seed_pixels(pixel_ids, frame_idx)
+    return generate_rays(camera, width, height, rng, pixel_ids=pixel_ids)
+
+
+def sample_stages(scene, camera: Camera, lights: LightParams, frame_idx,
+                  pixel_ids: torch.Tensor, *, width: int, height: int,
+                  settings: RenderSettings,
+                  count_lanes: bool = True) -> list:
+    """NORMAL mode's sample as a list of (span name, stage): drt.raygen,
+    each bounce's drt.b{i}.trace, .shade, .nee (with the sun) and
+    .scatter, then drt.post (with tonemap or gamma). A stage maps the
+    state dict (None into the first) to the next; the last state's
+    "light" is the (N, 3) sample.
+    `settings` must have its shade_fetch resolved (render_pixels does
+    that). The RNG stream is drawn in the JAX package's order, per
+    segment: u_edge, sun jitter, u_rr, ball, the cosine sample, u_lobe,
+    u_glass, u_fresnel. Every input is read when a stage runs, so the
+    stages of a CUDA graph read their inputs at each replay."""
+    tracers = _make_tracers(scene, settings)
+
+    def raygen(_):
+        n = pixel_ids.shape[0]
+        dev = pixel_ids.device
+        rng, origin, direction = _primary(camera, width, height, frame_idx,
+                                          pixel_ids)
+        return {"origin": origin, "direction": direction,
+                "throughput": torch.ones((n, 3), dtype=torch.float32,
+                                         device=dev),
+                "light": torch.zeros((n, 3), dtype=torch.float32,
+                                     device=dev),
+                "alive": torch.ones((n,), dtype=torch.bool, device=dev),
+                "rng": rng}
+
+    def post(s):
+        return {"light": _post(settings, camera, s["light"])}
+
+    part = functools.partial
+    stages = [("drt.raygen", raygen)]
+    for i in range(settings.bounces):
+        names = _bounce_spans(i)
+        stages += [
+            (names.trace, part(_trace, scene, lights, settings, tracers)),
+            (names.shade, part(_shade, scene, lights, settings,
+                               count_lanes))]
+        if settings.enable_sunlight:
+            stages.append((names.nee, part(_nee, scene, lights, settings,
+                                           tracers)))
+        stages.append((names.scatter, part(_scatter, settings, i)))
+    if settings.enable_tonemap or settings.enable_gamma:
+        stages.append(("drt.post", post))
+    return stages
 
 
 def _debug_view(scene, lights: LightParams, settings: RenderSettings,
@@ -728,49 +816,39 @@ def _debug_view(scene, lights: LightParams, settings: RenderSettings,
     return torch.where(live_hit, view, 0.0)
 
 
-def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx: int,
+def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx,
                   pixel_ids: torch.Tensor, *, width: int, height: int,
                   settings: RenderSettings) -> torch.Tensor:
     """Render one sample for a flat batch of pixel ids -> (N, 3) colour,
     on the scene's device; differentiable in the scene's float tables,
     the camera and the lights (wrap in torch.inference_mode() to render
-    without a graph). Tonemap and gamma apply in NORMAL mode and to the
-    ALBEDO debug view only. Spans: drt.sample around the call, drt.raygen,
-    each bounce's (_segment) and drt.post."""
+    without a graph). `frame_idx` is a Python int or a 0-d int64 tensor
+    on the pixels' device. Tonemap and gamma apply in NORMAL mode and to
+    the ALBEDO debug view only. Spans: drt.sample around the call, and
+    in NORMAL mode one per stage (sample_stages), run in order."""
     with profiling.span("drt.sample"):
         _check_settings(settings)
         # resolve the fetch once, so the tracers and every segment agree
         settings = settings.replace(
             shade_fetch=_resolve_fetch(scene, settings))
-        n = pixel_ids.shape[0]
-        dev = pixel_ids.device
+        if settings.render_mode == RenderMode.NORMAL:
+            state = None
+            for name, stage in sample_stages(
+                    scene, camera, lights, frame_idx, pixel_ids, width=width,
+                    height=height, settings=settings):
+                with profiling.span(name):
+                    state = stage(state)
+            return state["light"]
         with profiling.span("drt.raygen"):
-            rng = seed_pixels(pixel_ids, frame_idx)
-            rng, origin, direction = generate_rays(camera, width, height,
-                                                   rng, pixel_ids=pixel_ids)
-        tracers = _make_tracers(scene, settings)
-        if settings.render_mode == RenderMode.DEBUG:
-            color = _debug_view(scene, lights, settings, tracers[0], origin,
-                                direction)
-            post = settings.debug_mode == DebugMode.ALBEDO
-        else:
-            carry = (origin, direction,
-                     torch.ones((n, 3), dtype=torch.float32, device=dev),
-                     torch.zeros((n, 3), dtype=torch.float32, device=dev),
-                     torch.ones((n,), dtype=torch.bool, device=dev), rng)
-            for bounce_idx in range(settings.bounces):
-                carry = _segment(scene, lights, settings, tracers, carry,
-                                 bounce_idx)
-            color = carry[3]
-            post = True
-        if not post:
+            _, origin, direction = _primary(camera, width, height, frame_idx,
+                                            pixel_ids)
+        color = _debug_view(scene, lights, settings,
+                            _make_tracers(scene, settings)[0], origin,
+                            direction)
+        if settings.debug_mode != DebugMode.ALBEDO:
             return color
         with profiling.span("drt.post"):
-            if settings.enable_tonemap:
-                color = uncharted2_filmic(color, camera.exposure)
-            if settings.enable_gamma:
-                color = gamma_correct(color)
-        return color
+            return _post(settings, camera, color)
 
 
 def render_sample(scene, camera: Camera, lights: LightParams, frame_idx: int,

@@ -37,11 +37,11 @@ class Camera:
     def basis(self):
         """Orthonormal (forward, right, up) with world-up Y, falling back
         to world-up Z when looking straight up or down."""
-        dev = self.forward.device
         fwd = self.forward / _norm(self.forward)
-        up_y = torch.tensor(WORLD_UP, dtype=torch.float32, device=dev)
-        up_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
-        up_w = torch.where(fwd[1].abs() > 0.999, up_z, up_y)
+        # world-up Y and Z as rows of an identity made on the device: no
+        # copy from the host
+        axes = torch.eye(3, dtype=torch.float32, device=fwd.device)
+        up_w = torch.where(fwd[1].abs() > 0.999, axes[2], axes[1])
         right = torch.linalg.cross(fwd, up_w, dim=-1)
         right = right / torch.clamp_min(_norm(right), 1e-8)
         up = torch.linalg.cross(right, fwd, dim=-1)

@@ -18,7 +18,8 @@ and counters, the editor's Developer Metrics panel
   backward.
 - `count(name, n)`: a host counter, always on. `count_device(name, t)`:
   adds a device scalar into a device accumulator while spans are on,
-  with no host wait. `counters()` reads both.
+  with no host wait. `counters()` reads both, `host_counters()` the
+  host's alone.
 - `FrameStats`: running min/avg/max render rate, like the editor panel.
 - `trace(log_dir)`: torch.profiler and `recording()` over a block;
   writes `trace.json` (Chrome trace) and `spans.json`.
@@ -269,10 +270,15 @@ def count_device(name: str, value: torch.Tensor) -> None:
     acc.add_(value.detach())
 
 
+def host_counters(prefix: str = "drt.") -> dict:
+    """The host counters whose name starts with `prefix` (no host wait)."""
+    return {k: v for k, v in _host.items() if k.startswith(prefix)}
+
+
 def counters(prefix: str = "drt.") -> dict:
     """The counters whose name starts with `prefix`: host counters, and
     device counters read back (a host wait where there are any)."""
-    out = {k: v for k, v in _host.items() if k.startswith(prefix)}
+    out = host_counters(prefix)
     for k, accs in _device.items():
         if k.startswith(prefix):
             out[k] = sum(a.item() for a in accs.values())
