@@ -10,7 +10,8 @@ program  train cells only: set-up and the first steps of the timed
          render cell's program readings are its benchmark runs')
 control  the reference in bfloat16 in the program's place, against the
          float32 reference: a render cell's first `check.views` views of
-         the seed's orbit, a train cell's first steps
+         the seed's orbit (a loop with `control_views`), a train cell's
+         first steps
 fault    train cells: the float32 reference with half of the pixels left
          out of the loss (the mean over the rest), in the program's place
 
@@ -26,14 +27,15 @@ import sys
 import torch
 
 from bench_port import harness
-from bench_port.loops import LOOPS
+from bench_port.loops import loop_type
 
 
 def readings(workload, kind, seeds, dev):
     _, cell, cfg, traffic = harness.load_cell(workload)
+    cls = loop_type(traffic["loop"], harness.DATA)
     for seed in seeds:
-        loop = LOOPS[traffic["loop"]](cfg, traffic, seed, dev)
-        if traffic["loop"] == "render":
+        loop = cls(cfg, traffic, seed, dev, data=harness.DATA)
+        if hasattr(loop, "control_views"):
             if kind != "control":
                 raise SystemExit(f"{kind} readings are for train cells")
             views = loop.control_views()

@@ -4,16 +4,17 @@ window, check the answers against the plain reference, and build the
 result line.
 
 Everything is found by name. A configuration is the file that
-BENCHMARK.json's `configs` entry names; a traffic mix is
-`<data>/traffic/<traffic>.json`, whose "loop" picks one of
-loops.LOOPS; a per-layer metric is `<data>/metrics/<name>.py`, whose
-`read(record)` returns its value or None; a cell's limits are
-`<data>/limits/<cell>.json`. <data> is this folder unless a caller
-gives another."""
+BENCHMARK.json's `configs` entry names, and its "scene.generator" a
+built-in of scenes.py or `<data>/generators/<name>.py`; a traffic mix is
+`<data>/traffic/<traffic>.json`, whose "loop" is a built-in of loops.py
+or `<data>/loop_types/<name>.py`; a per-layer metric is
+`<data>/metrics/<name>.py`, whose `read(record)` returns its value or
+None; a cell's limits are `<data>/limits/<cell>.json`. <data> is this
+folder unless a caller gives another. So a cell that needs its own loop,
+scene and reference comes as new files and BENCHMARK.json entries."""
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import statistics
 import subprocess
@@ -23,8 +24,8 @@ from pathlib import Path
 
 import torch
 
-from bench_port import compare, trace
-from bench_port.loops import LOOPS
+from bench_port import compare, scenes, trace
+from bench_port.loops import loop_type
 
 DATA = Path(__file__).resolve().parent
 BENCH = DATA.parent / "BENCHMARK.json"
@@ -59,12 +60,7 @@ def cell_metrics(spec: dict, cell: dict) -> tuple:
 
 def reader(data: Path, metric: str):
     """The `read` function of `<data>/metrics/<metric>.py`."""
-    path = data / "metrics" / f"{metric}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return scenes.from_file(data, "metrics", metric, "read")
 
 
 def power_limit_w():
@@ -96,8 +92,11 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
     if traced and dev.type != "cuda":
         raise RuntimeError("a traced run reads the device: it needs CUDA")
     if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    loop = LOOPS[traffic["loop"]](cfg, traffic, seed, dev, trace=traced)
+        torch.cuda.init()  # the allocator knows the cards once CUDA is up
+        for card in range(cell["chips"]):
+            torch.cuda.reset_peak_memory_stats(card)
+    loop = loop_type(traffic["loop"], data)(cfg, traffic, seed, dev,
+                                           trace=traced, data=data)
     loop.setup()
 
     times = []
@@ -113,9 +112,9 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
     window_s = time.perf_counter() - w0
     record = None
     if traced:
-        record = _traced(loop)
+        record = _traced(loop, times)
     loop.finish()
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    device = _device(dev, cell, loop)
     found = forbidden_modules()
     if found:
         raise RuntimeError(f"modules loaded in the run: {found}")
@@ -140,7 +139,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
             metrics[m["name"]] = {"value": values[m["name"]],
                                   "unit": m["unit"]}
     result = {"correct": correct, "attempted": len(times), "failed": 0,
-              "metrics": metrics, "device": _device(dev, cell, peak)}
+              "metrics": metrics, "device": device}
     if traced:
         result["device"].update(busy_s=record["busy_s"],
                                 window_s=record["window_s"])
@@ -158,9 +157,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
     return result
 
 
-def _traced(loop) -> dict:
+def _traced(loop, times: list) -> dict:
     """The traced slices after the timed part of the window: the
-    profiled units, then the host-wait units."""
+    profiled units, then the host-wait units; with them the host-clock
+    seconds of every unit of the window (`unit_s`)."""
     unit = loop.unit_name
     spans = loop.spans() if hasattr(loop, "spans") else {}
     rec = trace.profile_units(loop.unit, PROFILED[unit], unit)
@@ -172,14 +172,23 @@ def _traced(loop) -> dict:
     rec.update(spans, loop=loop.traffic["loop"], width=loop.width,
                height=loop.height, bounces=loop.bounces,
                n_materials=len(loop.soup["materials"]),
-               wait_units=WAITED[unit], waits=waits)
+               wait_units=WAITED[unit], waits=waits, unit_s=list(times))
     return rec
 
 
-def _device(dev, cell, peak) -> dict:
+def _device(dev, cell, loop) -> dict:
+    """The result's `device`, read once the window has closed and before
+    the reference runs: `memory_peak_bytes` is the fullest of the cell's
+    cards in this process, or the loop's own `memory_peak_bytes()` where
+    its work runs in other processes."""
     if dev.type != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 0,
                 "memory_peak_bytes": 0}
+    if hasattr(loop, "memory_peak_bytes"):
+        peak = loop.memory_peak_bytes()
+    else:
+        peak = max(torch.cuda.max_memory_allocated(card)
+                   for card in range(cell["chips"]))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": cell["chips"], "memory_peak_bytes": int(peak),
             "power_limit_w": power_limit_w()}

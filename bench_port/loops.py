@@ -1,10 +1,13 @@
 """The closed loops a traffic mix drives, by the name in its "loop" key.
 
-Each loop builds the program's state in `setup`, runs one unit of work
-(a viewer frame, an optimizer step) per `unit()` call ending in a host
-wait for its result, keeps the answers that the check compares, frees
-the program's state in `release`, and computes the compared numbers in
-`check` with the plain reference in a given dtype (float32; bfloat16 is
+`loop_type` finds a loop by that name: the built-in `render` and `train`
+first, else `<data>/loop_types/<name>.py`, whose `LOOP` is a subclass of
+`Loop`. So a deployment that needs a loop of its own brings it as a new
+file. Each loop builds the program's state in `setup`, runs one unit of
+work (a viewer frame, an optimizer step) per `unit()` call ending in a
+host wait for its result, keeps the answers that the check compares,
+frees the program's state in `release`, and computes the compared
+numbers with the plain reference in a given dtype (float32; bfloat16 is
 the control)."""
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import math
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,19 +31,50 @@ def _seed_rng(seed: int, stream: int) -> np.random.Generator:
     return np.random.default_rng([seed % 2 ** 63, stream])
 
 
-class _Loop:
-    unit_name: str  # "frame" or "step": the traced slices' unit
-    chips = (1,)  # the cards a cell of this loop may ask for
+class Loop:
+    """The base of every loop; the harness and control.py call only this.
+
+    Class attributes:
+      unit_name  "frame" or "step": the traced slices' unit, which picks
+                 the profiled and host-wait slices' lengths (harness.py)
+      chips      the card counts a cell of this loop may ask for; the
+                 files test holds each cell's `chips` to it
+
+    Methods, in the order of a run:
+      setup()              build the program's state from the seed and
+                           warm up every shape through the window's own
+                           call: the set-up time
+      unit()               one timed unit, ending in a host wait
+      finish()             complete the unit in flight after the window
+      answers()            what the timed path produced, to be compared
+      release()            free the program's state before the reference
+      reference(dtype, ...)  the plain reference's answers in `dtype`;
+                           control.py passes `views` to a loop with
+                           `control_views`, `half_batch=True` for a fault
+      numbers(got, want)   the compared numbers, by the cell's limit names
+      e2e(times, window_s) the end-to-end metrics of the window's units
+    Optional:
+      spans()              host-clock spans added to the traced record
+      control_views()      the views the control renders (a loop with it
+                           is a render loop to control.py)
+      memory_peak_bytes()  the peak of the fullest card, where the loop's
+                           work runs outside the harness's process
+    Attributes the traced record reads: width, height, bounces, soup,
+    traffic (its "loop"), and counting, which the harness sets while it
+    counts host waits."""
+
+    unit_name: str
+    chips = (1,)
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device,
-                 trace: bool = False):
+                 trace: bool = False, *, data: Path):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
         self.dev = torch.device(device)
         self.trace = trace
         self.counting = False  # host waits reported around program calls
         self.width, self.height = cfg["width"], cfg["height"]
         self.bounces = cfg["bounces"]
-        self.soup = scenes.make(cfg["scene"], seed)
+        self.soup = scenes.make(cfg["scene"], seed, data)
 
     def _sync(self):
         if self.dev.type == "cuda":
@@ -84,7 +119,7 @@ class _Loop:
                 for k in LIGHT_KEYS}
 
 
-class RenderLoop(_Loop):
+class RenderLoop(Loop):
     """The interactive viewer: views on an orbit around the look-at point
     drawn from the seed; each view resets the film and makes its camera
     in its first frame; a frame is one render_progressive(spp=1) call,
@@ -227,7 +262,7 @@ class RenderLoop(_Loop):
                 "render_frame_ms_p95": arith.percentile(times, 95) * 1e3}
 
 
-class TrainLoop(_Loop):
+class TrainLoop(Loop):
     """apps/optimize.py's self-test: a target rendered at the true
     parameters (frame `target_frame`), the albedo and the lights
     scrambled from the seed, Adam through make_optimizer, and
@@ -417,3 +452,15 @@ class TrainLoop(_Loop):
 
 
 LOOPS = {"render": RenderLoop, "train": TrainLoop}
+
+
+def loop_type(name: str, data: Path) -> type:
+    """The loop class of a traffic mix's "loop": a built-in, or the `LOOP`
+    of `<data>/loop_types/<name>.py`."""
+    if name in LOOPS:
+        return LOOPS[name]
+    cls = scenes.from_file(data, "loop_types", name, "LOOP")
+    if not (isinstance(cls, type) and issubclass(cls, Loop)):
+        raise TypeError(f"{data / 'loop_types' / name}.py: LOOP is not a "
+                        f"subclass of bench_port.loops.Loop")
+    return cls

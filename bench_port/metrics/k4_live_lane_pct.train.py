@@ -1,7 +1,7 @@
 """Share of the material fetch's lanes that hold a live hit, in the
 profiled steps: 100 drt.k4.live_lanes / drt.k4.lanes, the program's
-counters (dustraytracer_tpu_torch/utils/profiling.py) that _segment
-adds at each material fetch while spans are on. K4, the fetch's
+counters (dustraytracer_tpu_torch/utils/profiling.py) that the stage
+_shade adds at each material fetch while spans are on. K4, the fetch's
 backward, is sized by all lanes; only the live ones carry a cotangent.
 None where the program has no counters; a cell that lists this metric
 and lacks a counter fails: a renamed counter must not read as 0."""

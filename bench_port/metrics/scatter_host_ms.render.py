@@ -1,6 +1,6 @@
 """Host ms a frame of the scatter of every bounce: the self time of the
-program's drt.b{i}.scatter spans (in _segment: Russian roulette and the
-bounce sampling), summed over the profiled frames and divided by their
+program's drt.b{i}.scatter spans (the stage _scatter: Russian roulette and
+the bounce sampling), summed over the profiled frames and divided by their
 drt.frame spans. It reads the program's span table
 (dustraytracer_tpu_torch/utils/profiling.py), which the profiled frames
 fill. None where the program has no span table; a cell that lists this

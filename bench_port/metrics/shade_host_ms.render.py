@@ -1,6 +1,6 @@
 """Host ms a frame of the shading of every bounce: the self time of the
-program's drt.b{i}.shade spans (in _segment: sky, the hit and material
-fetches, the albedo), summed over the profiled frames and divided by
+program's drt.b{i}.shade spans (the stage _shade: sky, the hit and
+material fetches, the albedo), summed over the profiled frames and divided by
 their drt.frame spans. It reads the program's span table
 (dustraytracer_tpu_torch/utils/profiling.py), which the profiled frames
 fill. None where the program has no span table; a cell that lists this

@@ -1,7 +1,9 @@
 """Scene generators, by the name a configuration's "scene.generator"
-gives. Each returns a triangle soup made from the seed, as numpy arrays
-that the program (through `to_document`) and the plain reference both
-take:
+gives: the built-in `sphere`, else the `make(seed, **args)` of
+`<data>/generators/<name>.py`, so that a deployment with a scene of its
+own brings it as a new file. Each returns a triangle soup made from the
+seed, as numpy arrays that the program (through `to_document`) and the
+plain reference both take:
 
     positions (T, 3, 3) f32, normals (T, 3, 3) f32, uvs (T, 3, 2) f32,
     material (T,) i32, materials [{"name", "base_color", "texture"}],
@@ -14,6 +16,9 @@ materials and one 256x256 u8 image. With seed 0 it is the tool's scene;
 the benchmark draws the displacement from the run's seed."""
 
 from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 
@@ -80,10 +85,26 @@ def sphere(n_lon: int, n_lat: int, seed: int) -> dict:
 GENERATORS = {"sphere": sphere}
 
 
-def make(spec: dict, seed: int) -> dict:
-    """The soup of a configuration's "scene" entry."""
+def from_file(data: Path, folder: str, name: str, attr: str):
+    """`attr` of `<data>/<folder>/<name>.py`, loaded by path: a loop, a
+    scene generator or a metric reader that a cell brings as a file."""
+    path = Path(data) / folder / f"{name}.py"
+    if not path.is_file():
+        raise LookupError(f"no {folder} entry {name!r}: {path} is not a file")
+    spec = importlib.util.spec_from_file_location(
+        f"bench_{folder}_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, attr)
+
+
+def make(spec: dict, seed: int, data: Path) -> dict:
+    """The soup of a configuration's "scene" entry; `data` is the
+    benchmark's data folder."""
     args = {k: v for k, v in spec.items() if k != "generator"}
-    return GENERATORS[spec["generator"]](seed=seed % 2 ** 32, **args)
+    name = spec["generator"]
+    gen = GENERATORS.get(name) or from_file(data, "generators", name, "make")
+    return gen(seed=seed % 2 ** 32, **args)
 
 
 def to_document(soup: dict):

@@ -6,8 +6,8 @@ root, in one process:
 Cases marked `card` need a CUDA card and skip without one (decided in
 the `card` fixture, never at import). `tiny` is a throwaway benchmark in
 a temporary directory: a 514-triangle stand-in at 24x16 with its own
-configuration, limits and copies of the traffic mixes and metric
-readers, so a run on the CPU takes seconds."""
+configuration, limits and copies of the traffic mixes, metric readers,
+loops and scene generators, so a run on the CPU takes seconds."""
 
 from __future__ import annotations
 
@@ -41,8 +41,9 @@ def tiny(tmp_path_factory) -> dict:
     benchmark whose cells are TINY_CELLS."""
     root = tmp_path_factory.mktemp("tiny")
     data = root / "bench_port"
-    for sub in ("traffic", "metrics"):
-        shutil.copytree(DATA / sub, data / sub)
+    for sub in ("traffic", "metrics", "loop_types", "generators"):
+        if (DATA / sub).is_dir():
+            shutil.copytree(DATA / sub, data / sub)
     (data / "configs").mkdir()
     (data / "limits").mkdir()
     cfg = json.loads((DATA / "configs" / "suzanne_512.json").read_text())

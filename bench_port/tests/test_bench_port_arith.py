@@ -64,6 +64,18 @@ def test_readers():
         100 * bound / 1e-5)
 
 
+def test_step_p95_reader():
+    """The per-layer step tail is the end-to-end one's arithmetic over
+    the window's unit times, and reads nothing in a render cell."""
+    read = harness.reader(DATA, "step_ms_p95.train")
+    times = [0.001 * k for k in range(1, 101)]
+    t = dict(record("train", []), unit_s=times)
+    assert read(t) == pytest.approx(95.05)
+    assert read(t) == 1e3 * arith.percentile(times, 95)
+    assert read(dict(record("render", []), unit_s=times)) is None
+    assert read(record("train", [])) is None
+
+
 @pytest.mark.parametrize("name,loop", [("k1_ms_per_frame.render", "render"),
                                        ("k4_roofline.train", "train"),
                                        ("kernels_per_frame.render",

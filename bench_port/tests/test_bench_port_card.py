@@ -14,15 +14,14 @@ import pytest
 
 from bench_port.tests.conftest import REPO
 
-CELLS = [w["name"] for w in
-         json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
+CELLS = json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS, ids=lambda w: w["name"])
 def test_cell_runs_on_the_card(card, cell):
     out = subprocess.run(
-        [sys.executable, "-m", "bench_port.run", "--workload", cell,
+        [sys.executable, "-m", "bench_port.run", "--workload", cell["name"],
          "--seed", "2147483648", "--seconds", "2", "--trace", "0"],
         cwd=REPO, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
@@ -30,6 +29,7 @@ def test_cell_runs_on_the_card(card, cell):
     assert res["correct"], res["checks"]
     assert list(res)[:5] == ["correct", "attempted", "failed", "metrics",
                              "device"] and list(res)[-1] == "checks"
-    assert res["device"]["platform"] == "gpu" and res["device"]["count"] == 1
+    assert res["device"]["platform"] == "gpu"
+    assert res["device"]["count"] == cell["chips"]
     assert "setup_s" in res["metrics"]
     assert out.stderr.strip().splitlines()[-1].startswith("check ")

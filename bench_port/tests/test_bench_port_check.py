@@ -25,7 +25,8 @@ def run(tiny, cell):
 
 def loop_of(tiny, cell, seed=4242):
     _, _, cfg, traffic = harness.load_cell(cell, tiny["bench"], tiny["data"])
-    return loops.LOOPS[traffic["loop"]](cfg, traffic, seed, "cpu")
+    return loops.loop_type(traffic["loop"], tiny["data"])(
+        cfg, traffic, seed, "cpu", data=tiny["data"])
 
 
 @pytest.mark.parametrize("cell", ["tiny.render_orbit", "tiny.train_material"])

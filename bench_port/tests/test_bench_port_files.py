@@ -10,6 +10,7 @@ import re
 import pytest
 
 from bench_port import harness
+from bench_port.loops import Loop, loop_type
 from bench_port.tests.conftest import DATA, REPO
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -43,20 +44,25 @@ def test_names_and_units(kind):
             assert NAME.match(key)
 
 
-def test_cells_name_their_files():
-    configs = {c["name"] for c in SPEC["configs"]}
-    used = {w["config"] for w in SPEC["workloads"]}
+def check_cells(spec: dict, data) -> None:
+    """Every configuration is used; each cell's traffic names a loop that
+    allows the cell's `chips`, and the cell has limits, `setup_s`, another
+    end-to-end metric and a per-layer metric."""
+    configs = {c["name"] for c in spec["configs"]}
+    used = {w["config"] for w in spec["workloads"]}
     assert used == configs
-    from bench_port.loops import LOOPS
-
-    for w in SPEC["workloads"]:
-        traffic = json.loads((DATA / "traffic" / f"{w['traffic']}.json")
+    for w in spec["workloads"]:
+        traffic = json.loads((data / "traffic" / f"{w['traffic']}.json")
                              .read_text())
-        assert w["chips"] in LOOPS[traffic["loop"]].chips
-        assert (DATA / "limits" / f"{w['name']}.json").is_file()
-        e2e, layer = harness.cell_metrics(SPEC, w)
+        assert w["chips"] in loop_type(traffic["loop"], data).chips
+        assert (data / "limits" / f"{w['name']}.json").is_file()
+        e2e, layer = harness.cell_metrics(spec, w)
         assert "setup_s" in {m["name"] for m in e2e} and len(e2e) >= 2
         assert layer
+
+
+def test_cells_name_their_files():
+    check_cells(SPEC, DATA)
 
 
 @pytest.mark.parametrize("entry", SPEC["configs"], ids=lambda c: c["name"])
@@ -72,9 +78,8 @@ def test_config_files_parse(entry):
 @pytest.mark.parametrize("path", sorted((DATA / "traffic").glob("*.json")),
                          ids=lambda p: p.stem)
 def test_traffic_files_parse(path):
-    from bench_port.loops import LOOPS
-
-    assert json.loads(path.read_text())["loop"] in LOOPS
+    assert issubclass(loop_type(json.loads(path.read_text())["loop"], DATA),
+                      Loop)
 
 
 @pytest.mark.parametrize("metric", SPEC["per_layer"],
