@@ -122,10 +122,12 @@ after phase 8:
 Phases 17-23 run on the bench sphere again, after phase 16:
 
  17. sharded   sharded_render_sample at 512x512 b4 on the meshes
-               [cuda:0] and [cuda:0, cuda:0] (the scene replicated once)
+               [cuda:0] and [cuda:0, cuda:0] (the scene replicated once;
+               one warm-up sample captures the tiles' graph runners)
                against render_sample: max |diff| <= 1e-6 (and whether
-               bit for bit), K1 launches per tile, ms per sample of each
-               and of the plain path (CUDA events, median of 5)
+               bit for bit), K1 launches per tile of a replayed sample,
+               ms per sample of each and of the plain path (CUDA events,
+               median of 5)
  18. sharded_train  the two-tile train step against the plain step
                (albedo, vertices, every light and camera field) at 48x48
                b2 within phase 8's tolerance; then ms per step, peak and
@@ -908,6 +910,8 @@ def port_phases(scene, camera, lights, glb: Path, tmp: Path, env,
                                              mesh=mesh, width=WIDTH,
                                              height=HEIGHT, settings=st)
 
+        tiled()  # warm-up: captures the tiles' graph runners, whose
+        torch.cuda.synchronize()  # eager warm-up sample counts launches
         reset_launches()
         out = tiled()
         torch.cuda.synchronize()

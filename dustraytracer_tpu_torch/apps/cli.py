@@ -15,10 +15,11 @@ error). `stats --cpu` is accepted and changes nothing: ingest runs on
 the host.
 `--checkpoint film.npz` resumes the film from that file if it exists
 and saves it when the render ends. `--devices N` splits the pixels of
-every sample over N devices (parallel/shard.py): the first N cards, or
-with `--cpu` N tiles on the CPU; one sample warms up outside the timed
-window, as in the JAX CLI. `--trace DIR` renders under
-`utils/profiling.py::trace` and writes DIR/trace.json and DIR/spans.json.
+every sample over N devices (`render_progressive(mesh=...)`, tile i on
+card i): the first N cards, or with `--cpu` N tiles on the CPU; one
+sample warms up outside the timed window, as in the JAX CLI. `--trace
+DIR` renders under `utils/profiling.py::trace` and writes DIR/trace.json
+and DIR/spans.json.
 """
 
 from __future__ import annotations
@@ -125,9 +126,11 @@ def cmd_stats(args) -> int:
 def cmd_render(args) -> int:
     import torch
 
-    from dustraytracer_tpu_torch.render.film import (film_accumulate,
-                                                     film_add, film_image,
-                                                     film_init)
+    from dustraytracer_tpu_torch.parallel.mesh import (make_render_mesh,
+                                                       replicate_scene)
+    from dustraytracer_tpu_torch.render.film import (film_image, film_init,
+                                                     film_split, film_whole,
+                                                     render_progressive)
     from dustraytracer_tpu_torch.render.integrator import render_sample
     from dustraytracer_tpu_torch.scene import load_scene, make_camera
     from dustraytracer_tpu_torch.scene.settings import (DebugMode,
@@ -167,44 +170,41 @@ def cmd_render(args) -> int:
             render_mode=RenderMode.DEBUG,
             debug_mode=DebugMode[args.debug_view.upper()])
     lights = LightParams.from_settings(settings, device=device)
-    film = film_init(width, height, device=device)
+    mesh = scenes = None
+    if args.devices > 0:
+        mesh = make_render_mesh(
+            args.devices, devices=None if cuda else [device] * args.devices)
+        scenes = replicate_scene(scene, mesh)
+    film = film_init(width, height, device=device, mesh=mesh)
     if args.checkpoint:
         resumed = load_film(args.checkpoint, width, height, device=device)
         if resumed is not None:
-            film = resumed
+            film = resumed if mesh is None else film_split(resumed, mesh)
             print(f"resumed from {args.checkpoint} at sample {film.frame}",
                   file=sys.stderr)
     spp = min(args.spp, settings.max_samples)
     todo = max(spp - film.frame, 0)
 
-    if args.devices > 0:
-        from dustraytracer_tpu_torch.parallel.mesh import (make_render_mesh,
-                                                           replicate_scene)
-        from dustraytracer_tpu_torch.parallel.shard import \
-            sharded_render_sample
-
-        mesh = make_render_mesh(
-            args.devices, devices=None if cuda else [device] * args.devices)
-        scenes = replicate_scene(scene, mesh)
-
-        def one_sample(f):
-            return sharded_render_sample(scenes, camera, lights, f,
-                                         mesh=mesh, width=width,
-                                         height=height, settings=settings)
+    def render(film, n):
+        return render_progressive(scenes or scene, camera, settings,
+                                  width=width, height=height, spp=n,
+                                  lights=lights, film=film, mesh=mesh)
 
     # set-up outside the timed render (the JAX CLI's compile step): build
     # or load the kernel, pack the scene's device tables and load torch's
     # kernels through one throwaway sample: 8x8, or with --devices one
-    # whole sharded sample, as the JAX CLI warms up
+    # whole sample over the mesh (its tiles' graphs captured), as the JAX
+    # CLI warms up
     t0 = time.perf_counter()
     with torch.inference_mode():  # forward only: no autograd graph
-        if args.devices == 0:
+        if mesh is None:
             render_sample(scene, camera, lights, 0, width=8, height=8,
                           settings=settings)
         elif todo:
-            one_sample(film.frame)
+            render(film_init(width, height, mesh=mesh), 1)
     if cuda:
-        torch.cuda.synchronize(device)
+        for card in dict.fromkeys(mesh or [device]):
+            torch.cuda.synchronize(card)
     compile_s = time.perf_counter() - t0
 
     if cuda:
@@ -214,23 +214,18 @@ def cmd_render(args) -> int:
     t0 = time.perf_counter()
     with (profiling.trace(args.trace) if args.trace
           else contextlib.nullcontext()):
-        if args.devices > 0:
-            with torch.inference_mode():
-                for f in range(film.frame, film.frame + todo):
-                    film = film_add(film, one_sample(f))
-        else:
-            film = film_accumulate(scene, camera, lights, film, todo,
-                                   width=width, height=height,
-                                   settings=settings)
+        film = render(film, todo)
+        img = film_image(film)
         if cuda:
             ev1.record()
-            torch.cuda.synchronize(device)
+            for card in dict.fromkeys(mesh or [device]):
+                torch.cuda.synchronize(card)
     render_s = (ev0.elapsed_time(ev1) / 1e3 if cuda
                 else time.perf_counter() - t0)
 
-    save_png(args.out, film_image(film))
+    save_png(args.out, img)
     if args.checkpoint:
-        save_film(args.checkpoint, film)
+        save_film(args.checkpoint, film_whole(film))
 
     metrics = {
         "scene": args.scene,

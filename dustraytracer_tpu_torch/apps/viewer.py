@@ -20,9 +20,13 @@ stdlib http.server — no extra dependencies, drive it with any browser:
 - the reference's five UI themes (`Editor/Theme/EditorTheme.cpp`).
 
 Run:  python -m dustraytracer_tpu_torch.apps.viewer --scene scene.glb \\
-          [--size 512x512] [--port 8060] [--cpu]
+          [--size 512x512] [--port 8060] [--cpu] [--devices N]
 
-Without --cpu it renders on the card, and raises without one.
+Without --cpu it renders on the card, and raises without one. With
+`--devices N` every sample's pixels are split over the first N cards
+(with --cpu, N tiles on the CPU), tile i rendered and accumulated on
+card i (`render/film.py`'s TileFilm); a size that does not divide into
+N tiles is refused.
 
 Architecture: one render thread owns all device work (one sample per
 loop through film_accumulate, replayed as CUDA graphs on a card, and
@@ -74,9 +78,11 @@ MUTABLE_CAMERA = ("vfov_deg", "focus_dist", "defocus_angle", "exposure")
 class ViewerState:
     """Shared mutable state; everything device-side happens in run()."""
 
-    def __init__(self, scene, camera, settings, width, height, speed):
+    def __init__(self, scene, camera, settings, width, height, speed,
+                 mesh=None):
         self.lock = threading.Lock()
         self.scene = scene
+        self.mesh = mesh  # devices of the tiles, or None
         self.camera = camera.to(scene.device)
         self.settings = settings
         self.width = width
@@ -109,6 +115,7 @@ class ViewerState:
             raise
 
     def _loop(self):
+        from dustraytracer_tpu_torch.parallel.mesh import replicate_scene
         from dustraytracer_tpu_torch.render.film import (film_accumulate,
                                                          film_image,
                                                          film_init)
@@ -118,10 +125,14 @@ class ViewerState:
 
         dev = self.scene.device
         cuda = dev.type == "cuda"
+        mesh = self.mesh
+        scene = replicate_scene(self.scene, mesh) if mesh else self.scene
+        cards = list(dict.fromkeys(mesh or [dev]))
         self.frame_stats = FrameStats()
         film = None
         lights = None
         key = None
+        shown, cams = None, None  # the camera and its copies on the mesh
 
         while self.running:
             with self.lock:
@@ -141,10 +152,15 @@ class ViewerState:
             if new_key != key:
                 key = new_key
                 lights = LightParams.from_settings(settings, device=dev)
+                if mesh:
+                    lights = replicate_scene(lights, mesh)
                 dirty = True
+            if cam is not shown:
+                shown = cam
+                cams = replicate_scene(cam, mesh) if mesh else cam
 
             if dirty:
-                film = film_init(w, h, device=dev)
+                film = film_init(w, h, device=dev, mesh=mesh)
                 with self.lock:
                     self.samples = 0
 
@@ -154,10 +170,11 @@ class ViewerState:
 
             self.frame_stats.begin()
             t0 = time.perf_counter()
-            film = film_accumulate(self.scene, cam, lights, film, 1,
+            film = film_accumulate(scene, cams, lights, film, 1,
                                    width=w, height=h, settings=settings)
             if cuda:
-                torch.cuda.synchronize(dev)
+                for card in cards:
+                    torch.cuda.synchronize(card)
             ms = (time.perf_counter() - t0) * 1e3
             self.frame_stats.end()
             img = film_image(film).cpu().numpy()
@@ -217,7 +234,10 @@ class ViewerState:
                 # Core/Renderer.cu:29-78): a new film, accumulation
                 # restarts
                 w, h = (int(x) for x in cmd["resize"])
-                if 16 <= w <= 4096 and 16 <= h <= 4096:
+                if self.mesh and (w * h) % len(self.mesh):
+                    self.log(f"resize to {w}x{h} refused: its pixels do "
+                             f"not divide into {len(self.mesh)} tiles")
+                elif 16 <= w <= 4096 and 16 <= h <= 4096:
                     self.width, self.height = w, h
                     self.dirty = True
                     self.log(f"resized to {w}x{h}")
@@ -465,6 +485,9 @@ def main(argv=None) -> int:
                    help="camera move step (default: 2%% of scene size)")
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU; the default needs a card")
+    p.add_argument("--devices", type=int, default=0,
+                   help="split the pixels over N devices (tiles); with "
+                   "--cpu, N tiles on the CPU")
     args = p.parse_args(argv)
 
     from dustraytracer_tpu_torch.scene import load_scene, make_camera
@@ -475,6 +498,17 @@ def main(argv=None) -> int:
                            "to render on the CPU)")
     device = torch.device("cpu" if args.cpu else "cuda")
     w, h = (int(x) for x in args.size.split("x"))
+    mesh = None
+    if args.devices > 0:
+        from dustraytracer_tpu_torch.parallel.mesh import make_render_mesh
+
+        mesh = make_render_mesh(
+            args.devices, devices=[device] * args.devices if args.cpu
+            else None)
+        device = mesh[0]
+        if (w * h) % len(mesh):
+            p.error(f"--size {args.size}: pixels ({w * h}) must divide mesh "
+                    f"size ({len(mesh)})")
     scene = load_scene(args.scene)
     lo = scene.node_min[0].numpy()
     hi = scene.node_max[0].numpy()
@@ -489,7 +523,7 @@ def main(argv=None) -> int:
     settings = RenderSettings(bounces=args.bounces,
                               max_samples=args.max_samples)
     state = ViewerState(scene, camera, settings, w, h,
-                        speed=args.speed or 0.02 * size)
+                        speed=args.speed or 0.02 * size, mesh=mesh)
 
     t = threading.Thread(target=state.run, daemon=True)
     t.start()

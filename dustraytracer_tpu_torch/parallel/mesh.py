@@ -72,6 +72,43 @@ def replicate_scene(scene, mesh) -> list:
     return out
 
 
+def replicas(x, mesh) -> list:
+    """`x` (a Scene, Camera or LightParams) as one copy per mesh entry:
+    the list `replicate_scene` made, or a single `x` replicated now."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != len(mesh):
+            raise ValueError(f"{len(x)} replicas for a mesh of {len(mesh)} "
+                             f"devices")
+        return list(x)
+    return replicate_scene(x, mesh)
+
+
+def tile_bounds(n: int, n_tiles: int, tile0: int = 0,
+                count: int | None = None) -> list:
+    """(start, stop) of the global pixel ids of tiles tile0 ... tile0 +
+    count - 1 (default: every tile) of the n pixels split in `n_tiles`
+    contiguous tiles. Pixels that do not divide the tiles raise
+    ValueError."""
+    if n % n_tiles:
+        raise ValueError(f"pixels ({n}) must divide mesh size ({n_tiles})")
+    step = n // n_tiles
+    count = n_tiles - tile0 if count is None else count
+    return [((tile0 + i) * step, (tile0 + i + 1) * step)
+            for i in range(count)]
+
+
+def tile_pixel_ids(mesh, n: int, tile0: int = 0,
+                   n_tiles: int | None = None) -> list:
+    """Global pixel ids of tiles tile0 ... tile0 + len(mesh) - 1 of the n
+    pixels split in `n_tiles` (default len(mesh)) contiguous tiles, tile
+    tile0 + i made on mesh[i]. Pixels that do not divide the tiles raise
+    ValueError."""
+    n_tiles = len(mesh) if n_tiles is None else n_tiles
+    return [torch.arange(a, b, dtype=torch.int64, device=dev)
+            for (a, b), dev in zip(tile_bounds(n, n_tiles, tile0, len(mesh)),
+                                   mesh)]
+
+
 def tile_sharding(mesh):
     """The split of a flat per-pixel array over the mesh: returns
     `split(x)`, the list of tiles `x[i*n/N:(i+1)*n/N]`, tile i moved to

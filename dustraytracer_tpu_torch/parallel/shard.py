@@ -18,10 +18,15 @@ import dataclasses
 
 import torch
 
-from dustraytracer_tpu_torch.parallel.mesh import (replicate_scene,
+from dustraytracer_tpu_torch.parallel.mesh import (replicas,
+                                                   tile_bounds,
+                                                   tile_pixel_ids,
                                                    tile_sharding)
+from dustraytracer_tpu_torch.render import graphed
 from dustraytracer_tpu_torch.render.integrator import render_pixels
-from dustraytracer_tpu_torch.scene.settings import RenderSettings
+from dustraytracer_tpu_torch.scene.camera import Camera
+from dustraytracer_tpu_torch.scene.settings import LightParams, RenderSettings
+from dustraytracer_tpu_torch.utils import profiling
 
 
 def apply_params(scene, camera, lights, params: dict):
@@ -56,47 +61,49 @@ def map_params(fn, params: dict) -> dict:
     return out
 
 
-def replicas(scene, mesh) -> list:
-    """`scene` as one copy per mesh entry: the list `replicate_scene`
-    made, or a single scene replicated now."""
-    if isinstance(scene, (list, tuple)):
-        if len(scene) != len(mesh):
-            raise ValueError(f"{len(scene)} scene replicas for a mesh of "
-                             f"{len(mesh)} devices")
-        return list(scene)
-    return replicate_scene(scene, mesh)
-
-
-def tile_pixel_ids(mesh, n: int, tile0: int = 0,
-                   n_tiles: int | None = None) -> list:
-    """Global pixel ids of tiles tile0 ... tile0 + len(mesh) - 1 of the n
-    pixels split in `n_tiles` (default len(mesh)) contiguous tiles, tile
-    tile0 + i made on mesh[i]. Pixels that do not divide the tiles raise
-    ValueError."""
-    n_tiles = len(mesh) if n_tiles is None else n_tiles
-    if n % n_tiles:
-        raise ValueError(f"pixels ({n}) must divide mesh size ({n_tiles})")
-    step = n // n_tiles
-    return [torch.arange((tile0 + i) * step, (tile0 + i + 1) * step,
-                         dtype=torch.int64, device=dev)
-            for i, dev in enumerate(mesh)]
+def tile_sample(scene, camera: Camera, lights: LightParams, frame: int,
+                tile, *, width: int, height: int, settings: RenderSettings,
+                timer: str | None = None) -> torch.Tensor:
+    """Sample `frame` of the global pixel ids tile[0] ... tile[1] - 1 on
+    the scene's device, (n, 3): the replay of its runner, whose static
+    output the tile's next sample overwrites, or render_pixels where
+    eager_reason finds something against it. Call it with that device
+    current (graphed.on_card). `timer`: the name of a
+    profiling.device_timer around each replayed stage, or around the
+    whole eager sample."""
+    run = graphed.runner(scene, camera, lights, width=width, height=height,
+                         settings=settings, tile=tile)
+    if run is not None:
+        return run.sample(camera, lights, frame, timer=timer)
+    with profiling.device_timer(timer, scene.device):
+        ids = torch.arange(*tile, dtype=torch.int64, device=scene.device)
+        return render_pixels(scene, camera, lights, frame, ids, width=width,
+                             height=height, settings=settings)
 
 
 def render_tiles(scene, camera, lights, frame_idx: int, *, mesh,
                  width: int, height: int, settings: RenderSettings,
                  tile0: int = 0, n_tiles: int | None = None) -> torch.Tensor:
     """One sample of `tile_pixel_ids`' tiles, tile tile0 + i rendered on
-    mesh[i]; their flat colours concatenated in order on mesh[0]. `scene`
-    is a Scene or `replicate_scene`'s list."""
+    mesh[i] by tile_sample (its card's graph runner where
+    graphed.eager_reason finds nothing against it, else eagerly); their
+    flat colours concatenated in order on mesh[0]. `scene` is a Scene or
+    `replicate_scene`'s list."""
     scenes = replicas(scene, mesh)
-    cams = replicate_scene(camera, mesh)
-    lits = replicate_scene(lights, mesh)
-    ids = tile_pixel_ids(mesh, width * height, tile0, n_tiles)
-    return torch.cat([
-        render_pixels(scenes[i], cams[i], lits[i], frame_idx, ids[i],
-                      width=width, height=height,
-                      settings=settings).to(mesh[0])
-        for i in range(len(mesh))])
+    cams = replicas(camera, mesh)
+    lits = replicas(lights, mesh)
+    n_tiles = len(mesh) if n_tiles is None else n_tiles
+    bounds = tile_bounds(width * height, n_tiles, tile0, len(mesh))
+    parts = []
+    for i, dev in enumerate(mesh):
+        with graphed.on_card(dev):
+            color = tile_sample(scenes[i], cams[i], lits[i], frame_idx,
+                                bounds[i], width=width, height=height,
+                                settings=settings)
+            # a replay's output is overwritten by the runner's next
+            # sample: the concatenation below copies it
+            parts.append(color.to(mesh[0]))
+    return torch.cat(parts)
 
 
 def sharded_render_sample(scene, camera, lights, frame_idx: int, *, mesh,

@@ -12,13 +12,16 @@ replayed sample equals the eager one bit for bit.
   a device other than CUDA, grad on (autograd records the eager ops),
   DEBUG mode, a traversal or option that reads a result on the host
   (SYNCING), or a camera or lights not float32 on the scene's device.
-- `runner(...)`: the graphs for the scene, size and settings, captured
-  on first use after one eager warm-up sample, all in one memory pool
-  and in replay order. The inputs are static buffers: the camera's and
-  the lights' fields, refreshed by one device copy before each sample,
-  and the frame index, written by a fill. A new key (scene, size,
-  settings, input shapes) frees the device's old graphs: one key per
-  device. A capture that fails raises.
+- `runner(...)`: the graphs for the scene, size, settings and tile (a
+  range of global pixel ids, the whole image by default), captured on
+  first use after one eager warm-up sample, on the scene's card and its
+  side stream, all in one memory pool and in replay order. The inputs
+  are static buffers: the camera's and the lights' fields, refreshed by
+  one device copy before each sample, and the frame index, written by a
+  fill. Runners are keyed by (card, tile), so a mesh that names one card
+  several times keeps one runner per tile. A new key (scene, size,
+  settings, input shapes) frees the card's graphs of every tile it
+  overlaps. A capture that fails raises.
 - Counters (utils/profiling.py): `drt.graph.captures` (graphs captured,
   always), `drt.graph.replays` (graphs replayed, while spans are on, as
   the K4 lane counts, so that a reader divides it by the same slice's
@@ -29,6 +32,7 @@ replayed sample equals the eager one bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 
@@ -53,7 +57,7 @@ SYNCING = {
                         "nonzero",
     "alpha_test": "the alpha re-trace selects its rays by boolean masks",
 }
-_RUNNERS = {}  # device -> _Runner
+_RUNNERS = {}  # (device, first pixel id, last + 1) -> _Runner
 
 
 def _fields(camera: Camera, lights: LightParams) -> list:
@@ -116,45 +120,62 @@ class StaticInputs:
         self.frame.fill_(frame)
 
 
+def on_card(dev):
+    """torch.cuda.device(dev) on a card, nothing elsewhere: a graph
+    replays on the current card's current stream."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 class _Runner:
-    """The captured graphs of one (scene, size, settings, input shapes)."""
+    """The captured graphs of one (scene, size, settings, input shapes)
+    over the global pixel ids tile[0] ... tile[1] - 1."""
 
     def __init__(self, scene, camera, lights, *, width, height, settings,
-                 shapes):
-        dev = scene.device
+                 shapes, tile):
+        dev = self.dev = scene.device
         self.scene = weakref.ref(scene)
         self.fingerprint = _fingerprint(scene)
         self.key = (width, height, settings, shapes)
-        # every tensor made outside the capture that the graphs read
-        # lives as long as they do: the inputs and the pixel ids
-        self.inputs = StaticInputs(camera, lights, dev)
-        self.pixel_ids = torch.arange(width * height, dtype=torch.int64,
-                                      device=dev)
-        # the K4 live-lane count is left out: the forward never runs K4
-        stages = sample_stages(
-            scene, self.inputs.camera, self.inputs.lights, self.inputs.frame,
-            self.pixel_ids, width=width, height=height, count_lanes=False,
-            settings=settings.replace(
-                shade_fetch=_resolve_fetch(scene, settings)))
-        self.inputs.load(camera, lights, 0)
-        state = None  # warm-up: builds the kernels and the scene's tables
-        for _, stage in stages:
-            state = stage(state)
-        del state
-        self.graphs, out = _capture(stages, dev)
-        self.out = out["light"].view(height, width, 3)
+        with torch.cuda.device(dev):
+            # every tensor made outside the capture that the graphs read
+            # lives as long as they do: the inputs and the pixel ids
+            self.inputs = StaticInputs(camera, lights, dev)
+            self.pixel_ids = torch.arange(*tile, dtype=torch.int64,
+                                          device=dev)
+            # the K4 live-lane count is left out: the forward never runs
+            # K4
+            stages = sample_stages(
+                scene, self.inputs.camera, self.inputs.lights,
+                self.inputs.frame, self.pixel_ids, width=width,
+                height=height, count_lanes=False,
+                settings=settings.replace(
+                    shade_fetch=_resolve_fetch(scene, settings)))
+            self.inputs.load(camera, lights, 0)
+            state = None  # warm-up: builds the kernels and the tables
+            for _, stage in stages:
+                state = stage(state)
+            del state
+            self.graphs, out = _capture(stages, dev)
+        self.out = out["light"]
 
     def matches(self, scene, width, height, settings, shapes) -> bool:
         return (self.scene() is scene
                 and self.key == (width, height, settings, shapes)
                 and self.fingerprint == _fingerprint(scene))
 
-    def sample(self, camera, lights, frame: int) -> torch.Tensor:
-        """Sample `frame`: the static (H, W, 3) output, which the next
-        replay overwrites. Spans as the eager sample's."""
+    def sample(self, camera, lights, frame: int,
+               timer: str | None = None) -> torch.Tensor:
+        """Sample `frame` of the tile: the static (n, 3) output, which the
+        next replay overwrites. Spans as the eager sample's. Call it with
+        the runner's card current (on_card). `timer`: the name of a
+        profiling.device_timer around each stage (its input load and one
+        graph launch), so no wait for the host's next launch is timed."""
         with profiling.span("drt.sample"):
             for i, (name, graph, launched) in enumerate(self.graphs):
-                with profiling.span(name):
+                with profiling.span(name), \
+                        profiling.device_timer(timer, self.dev):
                     if i == 0:
                         self.inputs.load(camera, lights, frame)
                     graph.replay()
@@ -198,21 +219,31 @@ def _capture(stages, dev) -> tuple:
 
 
 def runner(scene, camera: Camera, lights: LightParams, *, width: int,
-           height: int, settings: RenderSettings):
-    """The graph runner of this sample, captured where it is new, or None
-    where the sample stays eager (eager_reason)."""
+           height: int, settings: RenderSettings, tile=None):
+    """The graph runner of this sample over the global pixel ids
+    tile[0] ... tile[1] - 1 (default: the whole image), captured where it
+    is new, or None where the sample stays eager (eager_reason)."""
     _check_settings(settings)
     if eager_reason(scene, camera, lights, settings) is not None:
         return None
     dev = scene.device
+    start, stop = (0, width * height) if tile is None else tile
     shapes = tuple(t.shape for t in _fields(camera, lights))
-    run = _RUNNERS.get(dev)
+    key = (dev, start, stop)
+    run = _RUNNERS.get(key)
     if run is not None and run.matches(scene, width, height, settings,
                                        shapes):
         return run
-    if run is not None:  # one key per device: free the old pool first
+    del run
+    # a new key frees the card's runners over any of its pixels first
+    old = [k for k in _RUNNERS if k[0] == dev and k[1] < stop
+           and start < k[2]]
+    if old:
         torch.cuda.synchronize(dev)
-        del _RUNNERS[dev], run
-    _RUNNERS[dev] = _Runner(scene, camera, lights, width=width,
-                            height=height, settings=settings, shapes=shapes)
-    return _RUNNERS[dev]
+        for k in old:
+            del _RUNNERS[k]
+    _RUNNERS[key] = _Runner(scene, camera, lights, width=width,
+                            height=height, settings=settings, shapes=shapes,
+                            tile=(start, stop))
+    return _RUNNERS[key]
+

@@ -18,8 +18,10 @@ and counters, the editor's Developer Metrics panel
   backward.
 - `count(name, n)`: a host counter, always on. `count_device(name, t)`:
   adds a device scalar into a device accumulator while spans are on,
-  with no host wait. `counters()` reads both, `host_counters()` the
-  host's alone.
+  with no host wait. `device_timer(name, device)`: while spans are on,
+  CUDA events on the card's current stream around a block, with no host
+  wait. `counters()` reads all three (the timers as the ms between their
+  events, summed), `host_counters()` the host's alone.
 - `FrameStats`: running min/avg/max render rate, like the editor panel.
 - `trace(log_dir)`: torch.profiler and `recording()` over a block;
   writes `trace.json` (Chrome trace) and `spans.json`.
@@ -70,6 +72,7 @@ _chained = None     # the open chain() span, or None
 _local = threading.local()
 _host = {}          # host counters
 _device = {}        # device counters: name -> {device: accumulator}
+_timed = {}         # device timers: name -> [(start event, end event)]
 
 
 def enabled() -> bool:
@@ -270,6 +273,38 @@ def count_device(name: str, value: torch.Tensor) -> None:
     acc.add_(value.detach())
 
 
+class _Timer:
+    """CUDA events on the current stream around a block."""
+
+    __slots__ = ("name", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        _timed.setdefault(self.name, []).append((self.start, end))
+        return False
+
+
+def device_timer(name: str | None, device):
+    """While spans are on and `device` is a card (the current one, in the
+    block): CUDA events on its current stream around the block, whose
+    elapsed ms counters() adds into the counter `name` (a host wait at
+    read time, none here). The shared no-op otherwise, and where `name`
+    is None."""
+    if name is None or not (_prof._is_profiler_enabled or _recording) or \
+            torch.device(device).type != "cuda":
+        return _OFF
+    return _Timer(name)
+
+
 def host_counters(prefix: str = "drt.") -> dict:
     """The host counters whose name starts with `prefix` (no host wait)."""
     return {k: v for k, v in _host.items() if k.startswith(prefix)}
@@ -277,11 +312,17 @@ def host_counters(prefix: str = "drt.") -> dict:
 
 def counters(prefix: str = "drt.") -> dict:
     """The counters whose name starts with `prefix`: host counters, and
-    device counters read back (a host wait where there are any)."""
+    device counters and timers read back (a host wait where there are
+    any)."""
     out = host_counters(prefix)
     for k, accs in _device.items():
         if k.startswith(prefix):
             out[k] = sum(a.item() for a in accs.values())
+    for k, pairs in _timed.items():
+        if k.startswith(prefix):
+            for _, end in pairs:
+                end.synchronize()
+            out[k] = sum(s.elapsed_time(e) for s, e in pairs)
     return out
 
 
@@ -294,6 +335,7 @@ def clear() -> None:
         _dropped = 0
     _host.clear()
     _device.clear()
+    _timed.clear()
 
 
 def device_ops(prof) -> list:
