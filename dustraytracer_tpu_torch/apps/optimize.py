@@ -24,10 +24,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import inspect
 import json
 import os
 import sys
 import time
+import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -36,8 +39,10 @@ from dustraytracer_tpu_torch.parallel.mesh import (make_render_mesh,
                                                    replicate_scene)
 from dustraytracer_tpu_torch.parallel.shard import (apply_params,
                                                     sharded_loss)
+from dustraytracer_tpu_torch.render import graphed
 from dustraytracer_tpu_torch.render.integrator import (render_pixels,
-                                                       render_sample)
+                                                       render_sample,
+                                                       reporting_to)
 from dustraytracer_tpu_torch.render.texture import decode_textures
 from dustraytracer_tpu_torch.scene import load_scene, make_camera
 from dustraytracer_tpu_torch.scene.settings import (LightParams,
@@ -179,7 +184,8 @@ def scramble(scene, names, self_test: bool, perturb_vertices: float = 0.0,
 def make_loss_fn(scene, camera, lights, target, *, width: int, height: int,
                  settings, mesh=None):
     """loss(params, frame): mean squared error of one rendered sample
-    against `target` (H, W, 3), over all pixels and channels. With a
+    against `target` (H, W, 3), over all pixels and channels; `frame` an
+    int or a 0-d int64 tensor on the card (train_step's graphs). With a
     `mesh` the pixels split over its devices: the sum of the tiles'
     squared errors over the global n * 3 (parallel/shard.py)."""
     n = width * height
@@ -196,7 +202,7 @@ def make_loss_fn(scene, camera, lights, target, *, width: int, height: int,
     ids = torch.arange(n, device=scene.device)
     tgt = target.reshape(n, 3)
 
-    def loss_fn(params, frame: int):
+    def loss_fn(params, frame):
         sc, c, li = apply_params(scene, camera, lights, params)
         color = render_pixels(sc, c, li, frame, ids, width=width,
                               height=height, settings=settings)
@@ -207,9 +213,210 @@ def make_loss_fn(scene, camera, lights, target, *, width: int, height: int,
 
 def make_optimizer(params: dict, lr: float):
     """Adam over the params' leaves with optax.adam's defaults (b1 0.9,
-    b2 0.999, eps 1e-8 outside the square root)."""
-    return torch.optim.Adam(param_leaves(params), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+    b2 0.999, eps 1e-8 outside the square root); capturable where every
+    leaf is on a card (its step count on the card, so that train_step
+    can replay it in a CUDA graph)."""
+    leaves = param_leaves(params)
+    return torch.optim.Adam(
+        leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        capturable=all(t.device.type == "cuda" for t in leaves))
+
+
+def _step_stages(params: dict, optimizer, loss_fn, frame,
+                 record: graphed.ForwardRecord) -> list:
+    """train_step's body as (span name, stage) pairs, which the eager
+    step runs and the graphed step captures: the forward (the loss, with
+    its render_pixels calls reported to `record`, and the sum of the
+    live lanes it recorded), the backward (drt.bwd.loss runs from the
+    call to the last bounce's drt.bwd.b{i}, which a gradient hook opens),
+    Adam (after a zero gradient for each leaf the loss does not reach,
+    as in JAX, so that every Adam moment decays each step as optax's
+    does) and the projection. A stage maps the state dict (None into the
+    first) to the next."""
+    def forward(_):
+        with reporting_to(record):
+            loss = loss_fn(params, frame)
+        live = torch.stack(record.live).sum() if record.live else None
+        return {"loss": loss, "live": live}
+
+    def backward(s):
+        if s["loss"].requires_grad:
+            profiling.chain("drt.bwd.loss")
+            s["loss"].backward()
+            profiling.end_chain()
+        return s
+
+    def adam(s):
+        for t in param_leaves(params):
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        optimizer.step()
+        return s
+
+    def project(s):
+        project_params(params)
+        return s
+
+    return [("drt.step.forward", forward), ("drt.step.backward", backward),
+            ("drt.step.adam", adam), ("drt.step.project", project)]
+
+
+def _run_eager(stages) -> dict:
+    state = None
+    for name, stage in stages:
+        with profiling.span(name):
+            state = stage(state)
+    return state
+
+
+def _ref(fn):
+    return (weakref.WeakMethod(fn) if inspect.ismethod(fn)
+            else weakref.ref(fn))
+
+
+class _StepKey:
+    """What a captured step bakes in: the loss function and the optimizer
+    (by weak reference), the optimizer's hyperparameters, the leaves'
+    addresses and shapes; `matches` compares a step's call with it."""
+
+    def __init__(self, leaves, optimizer, loss_fn):
+        self.loss_fn, self.optimizer = _ref(loss_fn), _ref(optimizer)
+        self.rest = self._rest(leaves, optimizer)
+
+    @staticmethod
+    def _rest(leaves, optimizer) -> tuple:
+        hyper = tuple(tuple((k, v) for k, v in sorted(g.items())
+                            if k != "params")
+                      for g in optimizer.param_groups)
+        return hyper, tuple((t.data_ptr(), t.shape) for t in leaves)
+
+    def matches(self, leaves, optimizer, loss_fn) -> bool:
+        return (self.loss_fn() == loss_fn
+                and self.optimizer() is optimizer
+                and self.rest == self._rest(leaves, optimizer))
+
+
+@dataclasses.dataclass
+class _Decided:
+    """An eager warm-up step's verdict on its key: `reason` it stays
+    eager (None: the next step captures), and the settings its forward
+    rendered with."""
+    key: _StepKey
+    reason: str | None
+    settings: list
+
+    def matches(self, leaves, optimizer, loss_fn) -> bool:
+        return self.key.matches(leaves, optimizer, loss_fn)
+
+
+class _StepGraphs:
+    """The step captured as four CUDA graphs in one pool (render/graphed.py
+    capture): the forward with the frame as a static 0-d int64 tensor,
+    the backward into static .grads, Adam and the projection. `ok` is
+    False where the capture's forward reported other settings or reasons
+    than the warm-up's."""
+
+    def __init__(self, decided: _Decided, params, optimizer, loss_fn, dev):
+        self.key = decided.key
+        leaves = param_leaves(params)
+        with torch.cuda.device(dev):
+            self.frame = torch.zeros((), dtype=torch.int64, device=dev)
+            record = graphed.ForwardRecord(capturing=True)
+            # the backward allocates the .grads in the pool; no step sets
+            # them to None after this
+            optimizer.zero_grad(set_to_none=True)
+            with profiling.muted(), warnings.catch_warnings():
+                # a stage with nothing to do (a projection with no
+                # bounded leaf) captures an empty graph
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                self.graphs, state = graphed.capture(
+                    _step_stages(params, optimizer, loss_fn, self.frame,
+                                 record), dev)
+        self.ok = (record.reason(dev) is None
+                   and record.settings() == decided.settings)
+        self.loss, self.live = state["loss"], state["live"]
+        self.n_lanes = record.n_lanes
+        # the addresses the graphs write: a step that finds them replaced
+        # (a load of Adam's state, a zero_grad) captures anew
+        self.buffers = self._buffers(leaves, optimizer)
+
+    @staticmethod
+    def _buffers(leaves, optimizer) -> list:
+        return [b for t in leaves
+                for b in (t.grad, *optimizer.state.get(t, {}).values())]
+
+    def matches(self, leaves, optimizer, loss_fn) -> bool:
+        now = self._buffers(leaves, optimizer)
+        return (self.key.matches(leaves, optimizer, loss_fn)
+                and len(now) == len(self.buffers)
+                and all(a is b for a, b in zip(now, self.buffers)))
+
+    def step(self, frame: int) -> torch.Tensor:
+        """Replay the step at `frame` in the eager step's spans; a clone
+        of the loss, which the next replay overwrites."""
+        graphed.replay(self.graphs, lambda: self.frame.fill_(frame))
+        if profiling.enabled():
+            profiling.count("drt.step.replayed")
+            if self.live is not None:
+                profiling.count("drt.k4.lanes", self.n_lanes)
+                profiling.count_device("drt.k4.live_lanes", self.live)
+        return self.loss.detach().clone()
+
+
+_STEPS = {}  # card -> its _Decided or _StepGraphs
+
+
+def _card(leaves):
+    """The one CUDA device of every leaf, or the reason there is none."""
+    devs = {t.device for t in leaves}
+    if len(devs) != 1:
+        return None, f"leaves on {sorted(map(str, devs))}: not one card"
+    (dev,) = devs
+    if dev.type != "cuda":
+        return None, f"device {dev} is not CUDA"
+    return dev, None
+
+
+def step_reason(params: dict, optimizer, loss_fn) -> str | None:
+    """Why train_step runs this call eagerly, as graphed.eager_reason
+    says it of a sample: None where it replays (or its next step
+    captures)."""
+    leaves = param_leaves(params)
+    dev, reason = _card(leaves)
+    if dev is None:
+        return reason
+    got = _STEPS.get(dev)
+    if got is None or not got.key.matches(leaves, optimizer, loss_fn):
+        return "no eager warm-up step of this loss and optimizer yet"
+    return got.reason if isinstance(got, _Decided) else None
+
+
+def _warm_up(stages) -> tuple:
+    """The eager step that decides: its state, and why it cannot be
+    captured (a wait for the card, as set_sync_debug_mode("warn")
+    reports it; the forward's record), or None."""
+    before = torch.cuda.get_sync_debug_mode()
+    if not before:  # "error" stays: a wait raises, as the caller asked
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state = _run_eager(stages)
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    waits = [w for w in caught if "synchroniz" in str(w.message)]
+    for w in caught:
+        # the capturable Adam's note that it ran uncaptured (this step is
+        # meant to), and the waits where the caller did not ask for them
+        if ("capturable=True" not in str(w.message)
+                and (before or w not in waits)):
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+    if waits:
+        return state, f"the step waits for the card: {waits[0].message}"
+    if not state["loss"].requires_grad:
+        return state, "the loss reaches no leaf"
+    return state, None
 
 
 def train_step(params: dict, optimizer, loss_fn, frame: int):
@@ -217,27 +424,49 @@ def train_step(params: dict, optimizer, loss_fn, frame: int):
     the step. A leaf the loss does not reach gets a zero gradient, as in
     JAX, so every Adam moment decays each step as optax's does (with one
     bounce and hard edges, say, the image does not depend on vertices).
+
+    On a card, the first step of a (loss_fn, optimizer, hyperparameters,
+    leaves) key runs eagerly and decides: where every render_pixels call
+    of its loss and every leaf is on the one card, each call's
+    graphed.forward_reason is None and the step made the host wait for
+    nothing, the next step captures the step (_StepGraphs) and every
+    later step of the key replays it: one graph launch a span, and the
+    same stages as the eager step, so the same numbers bit for bit. A
+    new key frees the card's graphs. Elsewhere, and where the warm-up
+    found a reason (step_reason), every step runs eagerly.
     Spans: drt.step around the call, drt.step.forward, .backward (the
-    drt.bwd.loss and drt.bwd.b{i} chain inside), .adam and .project."""
+    drt.bwd.loss and drt.bwd.b{i} chain inside, where eager), .adam and
+    .project; counters, while spans are on: drt.step.replayed (steps
+    replayed), drt.graph.replays, and the K4 lane counts of a replay."""
+    leaves = param_leaves(params)
     with profiling.span("drt.step"):
+        dev, _ = _card(leaves)
+        got = _STEPS.get(dev) if dev is not None else None
+        if got is not None and not got.matches(leaves, optimizer, loss_fn):
+            torch.cuda.synchronize(dev)
+            del _STEPS[dev]
+            got = None
+        if isinstance(got, _Decided) and got.reason is None:
+            graphs = _StepGraphs(got, params, optimizer, loss_fn, dev)
+            if graphs.ok:
+                _STEPS[dev] = got = graphs
+            else:  # another forward than the warm-up's: warm up anew
+                torch.cuda.synchronize(dev)
+                del _STEPS[dev], graphs
+                got = None
+        if isinstance(got, _StepGraphs):
+            return got.step(frame)
         optimizer.zero_grad(set_to_none=True)
-        with profiling.span("drt.step.forward"):
-            loss = loss_fn(params, frame)
-        with profiling.span("drt.step.backward"):
-            if loss.requires_grad:
-                # drt.bwd.loss runs from the call to the last bounce's
-                # drt.bwd.b{i}, which a gradient hook opens
-                profiling.chain("drt.bwd.loss")
-                loss.backward()
-                profiling.end_chain()
-        with profiling.span("drt.step.adam"):
-            for t in param_leaves(params):
-                if t.grad is None:
-                    t.grad = torch.zeros_like(t)
-            optimizer.step()
-        with profiling.span("drt.step.project"):
-            project_params(params)
-        return loss.detach()
+        record = graphed.ForwardRecord()
+        stages = _step_stages(params, optimizer, loss_fn, frame, record)
+        if dev is None or got is not None:
+            state = _run_eager(stages)
+        else:
+            state, reason = _warm_up(stages)
+            _STEPS[dev] = _Decided(_StepKey(leaves, optimizer, loss_fn),
+                                   record.reason(dev) or reason,
+                                   record.settings())
+        return state["loss"].detach()
 
 
 def main(argv=None) -> int:

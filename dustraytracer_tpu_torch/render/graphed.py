@@ -12,6 +12,9 @@ replayed sample equals the eager one bit for bit.
   a device other than CUDA, grad on (autograd records the eager ops),
   DEBUG mode, a traversal or option that reads a result on the host
   (SYNCING), or a camera or lights not float32 on the scene's device.
+  `forward_reason(...)` is the same without the grad rule: why a sample
+  cannot be captured at all, which the train step (apps/optimize.py)
+  asks of each render_pixels call in its loss through a ForwardRecord.
 - `runner(...)`: the graphs for the scene, size, settings and tile (a
   range of global pixel ids, the whole image by default), captured on
   first use after one eager warm-up sample, on the scene's card and its
@@ -28,6 +31,8 @@ replayed sample equals the eager one bit for bit.
   drt.frame spans); each replay adds its graph's capture-time
   `drt.launch.*` counts, so the launch counters count the kernels that
   run.
+- `capture(stages, dev)` and `replay(graphs, load)`: the capture and
+  the replay themselves, which the train step shares.
 """
 
 from __future__ import annotations
@@ -69,11 +74,18 @@ def eager_reason(scene, camera: Camera, lights: LightParams,
                  settings: RenderSettings) -> str | None:
     """Why film_accumulate renders this sample eagerly, or None where it
     replays graphs."""
+    if scene.device.type == "cuda" and torch.is_grad_enabled():
+        return "grad is on: autograd records the eager ops"
+    return forward_reason(scene, camera, lights, settings)
+
+
+def forward_reason(scene, camera: Camera, lights: LightParams,
+                   settings: RenderSettings) -> str | None:
+    """Why this sample cannot be captured, with grad on or off, or None
+    where it can."""
     dev = scene.device
     if dev.type != "cuda":
         return f"device {dev} is not CUDA"
-    if torch.is_grad_enabled():
-        return "grad is on: autograd records the eager ops"
     if settings.render_mode != RenderMode.NORMAL:
         return "DEBUG mode"
     kind = tracer_kind(scene, settings)
@@ -85,6 +97,43 @@ def eager_reason(scene, camera: Camera, lights: LightParams,
            for t in _fields(camera, lights)):
         return "a camera or lights field is not float32 on the device"
     return None
+
+
+class ForwardRecord:
+    """What a loss's forward reports inside integrator.reporting_to: each
+    render_pixels call's forward_reason, card and settings; and, where
+    `capturing`, the lanes of each material fetch and its live-lane sum,
+    a device scalar that the forward's graph writes (the K4 counters of
+    a replay, which runs no Python)."""
+
+    def __init__(self, capturing: bool = False):
+        self.capturing = capturing
+        self.calls = []     # (forward_reason, card, settings) per call
+        self.n_lanes = 0
+        self.live = []
+
+    def call(self, scene, camera, lights, settings) -> None:
+        self.calls.append((forward_reason(scene, camera, lights, settings),
+                           scene.device, settings))
+
+    def lanes(self, live_hit: torch.Tensor) -> None:
+        if self.capturing:
+            self.n_lanes += live_hit.shape[0]
+            self.live.append(live_hit.sum())
+
+    def settings(self) -> list:
+        return [st for _, _, st in self.calls]
+
+    def reason(self, dev) -> str | None:
+        """Why the recorded forward cannot be captured on card `dev`, or
+        None where it can."""
+        if not self.calls:
+            return "the loss calls no render_pixels"
+        cards = {str(d) for _, d, _ in self.calls} | {str(dev)}
+        if len(cards) > 1:
+            return (f"render_pixels calls and leaves on {sorted(cards)}: "
+                    f"not one card")
+        return next((r for r, _, _ in self.calls if r is not None), None)
 
 
 def _fingerprint(scene) -> tuple:
@@ -157,7 +206,7 @@ class _Runner:
             for _, stage in stages:
                 state = stage(state)
             del state
-            self.graphs, out = _capture(stages, dev)
+            self.graphs, out = capture(stages, dev)
         self.out = out["light"]
 
     def matches(self, scene, width, height, settings, shapes) -> bool:
@@ -173,23 +222,33 @@ class _Runner:
         profiling.device_timer around each stage (its input load and one
         graph launch), so no wait for the host's next launch is timed."""
         with profiling.span("drt.sample"):
-            for i, (name, graph, launched) in enumerate(self.graphs):
-                with profiling.span(name), \
-                        profiling.device_timer(timer, self.dev):
-                    if i == 0:
-                        self.inputs.load(camera, lights, frame)
-                    graph.replay()
-                for key, n in launched:
-                    profiling.count(key, n)
-            if profiling.enabled():
-                profiling.count("drt.graph.replays", len(self.graphs))
+            replay(self.graphs,
+                   lambda: self.inputs.load(camera, lights, frame),
+                   timer, self.dev)
         return self.out
 
 
-def _capture(stages, dev) -> tuple:
+def replay(graphs, load, timer: str | None = None, dev=None) -> None:
+    """Replay `capture`'s graphs in order, each inside its span (and the
+    device timer `timer` on `dev`), after `load()` refreshes the first
+    graph's static inputs; each adds its capture-time `drt.launch.*`
+    counts, and, while spans are on, drt.graph.replays the graphs."""
+    for i, (name, graph, launched) in enumerate(graphs):
+        with profiling.span(name), profiling.device_timer(timer, dev):
+            if i == 0:
+                load()
+            graph.replay()
+        for key, n in launched:
+            profiling.count(key, n)
+    if profiling.enabled():
+        profiling.count("drt.graph.replays", len(graphs))
+
+
+def capture(stages, dev) -> tuple:
     """Capture each stage into its own graph, in order, in one pool, on a
     side stream; returns ([(span name, graph, launch counts)], the last
-    stage's state)."""
+    stage's state). Call it with spans off or muted: a span's hook or
+    count would be baked into the graph."""
     pool = torch.cuda.graph_pool_handle()
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))

@@ -38,6 +38,7 @@ JAX's, half on each side.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from types import SimpleNamespace
 
@@ -78,6 +79,10 @@ KERNEL_FETCH_BAND = (12288, 16384)
 AUTO_SORTED = ()
 TRAVERSALS = ("auto", "sweep", "cluster", "brute", "gather")
 SHADINGS = ("reference", "pbr")
+# what render_pixels and the material fetches report to inside
+# reporting_to (the train step's forward: render/graphed.py
+# ForwardRecord); None elsewhere
+_recorder = None
 
 
 def _check_settings(settings: RenderSettings):
@@ -565,11 +570,13 @@ def _pbr_bounce(sh, matd, direction, ball, bounce_dir, new_origin,
     cos_in = _clip(-(d_n * nrm).sum(dim=-1), 0.0, 1.0)
     k = 1.0 - eta * eta * (1.0 - cos_in * cos_in)
     tir = k < 0.0
-    # double where: sqrt'(0) = inf would turn the TIR lanes' zero
-    # cotangent into NaN in d/d(ior)
-    k_safe = torch.where(tir, 1.0, torch.maximum(k, k.new_full((), 0.0)))
+    # double where: sqrt'(0) = inf would turn a zero cotangent into NaN in
+    # d/d(ior), on the TIR lanes (they reflect: their root is unused) and
+    # where k rounds to exactly 0, as it often does at the critical angle
+    pos = k > 0.0
+    root = torch.where(pos, torch.sqrt(torch.where(pos, k, 1.0)), 0.0)
     refr = (eta[:, None] * (d_n + cos_in[:, None] * nrm)
-            - torch.sqrt(k_safe)[:, None] * nrm)
+            - root[:, None] * nrm)
     r0 = (1.0 - eta) / (1.0 + eta)
     r0 = r0 * r0
     # (1 - cos)^5 multiplied out as XLA's integer_pow does it
@@ -624,7 +631,8 @@ def _shade(scene, lights, settings, count_lanes, s) -> dict:
     """Stage drt.b{i}.shade: sky on a miss, the hit and material fetches,
     emission (pbr), the albedo. Adds sh, matd, new_origin. With
     count_lanes, while spans are on, counts the material fetch's lanes
-    and live lanes for K4."""
+    and live lanes for K4; while they are off, reports them to the
+    recorder of reporting_to, if any."""
     s = dict(s)
     origin, direction = s["origin"], s["direction"]
     alive, miss, live_hit = s["alive"], s["miss"], s["live_hit"]
@@ -639,9 +647,12 @@ def _shade(scene, lights, settings, count_lanes, s) -> dict:
         sh = shade_hits(scene, origin, direction, s["hit_idx"],
                         smooth=settings.smooth_shading)
     matd = _fetch_material(scene, sh["material"])
-    if count_lanes and profiling.enabled():
-        profiling.count("drt.k4.lanes", live_hit.shape[0])
-        profiling.count_device("drt.k4.live_lanes", live_hit.sum())
+    if count_lanes:
+        if profiling.enabled():
+            profiling.count("drt.k4.lanes", live_hit.shape[0])
+            profiling.count_device("drt.k4.live_lanes", live_hit.sum())
+        elif _recorder is not None:
+            _recorder.lanes(live_hit)
     if settings.shading == "pbr":  # emission, before the albedo multiply
         light = light + torch.where(live_hit[:, None],
                                     throughput * matd["emissive"], 0.0)
@@ -816,6 +827,21 @@ def _debug_view(scene, lights: LightParams, settings: RenderSettings,
     return torch.where(live_hit, view, 0.0)
 
 
+@contextlib.contextmanager
+def reporting_to(recorder):
+    """Over the block, render_pixels reports each call to
+    `recorder.call(scene, camera, lights, settings)` (the settings with
+    the fetch resolved), and each material fetch of a
+    NORMAL sample, while spans are off, its live-lane mask to
+    `recorder.lanes(live_hit)`."""
+    global _recorder
+    outer, _recorder = _recorder, recorder
+    try:
+        yield recorder
+    finally:
+        _recorder = outer
+
+
 def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx,
                   pixel_ids: torch.Tensor, *, width: int, height: int,
                   settings: RenderSettings) -> torch.Tensor:
@@ -831,6 +857,8 @@ def render_pixels(scene, camera: Camera, lights: LightParams, frame_idx,
         # resolve the fetch once, so the tracers and every segment agree
         settings = settings.replace(
             shade_fetch=_resolve_fetch(scene, settings))
+        if _recorder is not None:
+            _recorder.call(scene, camera, lights, settings)
         if settings.render_mode == RenderMode.NORMAL:
             state = None
             for name, stage in sample_stages(

@@ -82,7 +82,9 @@ def load_train_state(path, example_params: dict, optimizer=None):
 
     Copies the saved leaves into `example_params`' tensors in place and,
     when both the file and the call carry an optimizer, sets its Adam
-    state. Returns (params, optimizer or None, step), or None when no
+    state (the step count on the leaf's device where the optimizer is
+    capturable, on the host otherwise, as torch.optim.Adam keeps it).
+    Returns (params, optimizer or None, step), or None when no
     checkpoint exists."""
     npz = str(path) + ".npz"
     if not os.path.exists(npz):
@@ -96,9 +98,13 @@ def load_train_state(path, example_params: dict, optimizer=None):
         if optimizer is not None and "o0" in z:
             count = float(z["o0"])
             n = len(leaves)
+            capturable = any(g.get("capturable")
+                             for g in optimizer.param_groups)
             for i, t in enumerate(leaves):
                 optimizer.state[t] = {
-                    "step": torch.tensor(count, dtype=torch.float32),
+                    "step": torch.tensor(
+                        count, dtype=torch.float32,
+                        device=t.device if capturable else "cpu"),
                     "exp_avg": torch.from_numpy(z[f"o{i + 1}"]).to(t.device),
                     "exp_avg_sq": torch.from_numpy(
                         z[f"o{n + i + 1}"]).to(t.device)}

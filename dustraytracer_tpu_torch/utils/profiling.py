@@ -22,6 +22,9 @@ and counters, the editor's Developer Metrics panel
   CUDA events on the card's current stream around a block, with no host
   wait. `counters()` reads all three (the timers as the ms between their
   events, summed), `host_counters()` the host's alone.
+- `muted()`: spans and device counters off over a block, even under a
+  profiler (a CUDA graph's capture, so that no hook or count is baked
+  into the graph).
 - `FrameStats`: running min/avg/max render rate, like the editor panel.
 - `trace(log_dir)`: torch.profiler and `recording()` over a block;
   writes `trace.json` (Chrome trace) and `spans.json`.
@@ -60,6 +63,7 @@ class _Off:
 
 _OFF = _Off()
 _recording = 0      # depth of recording() blocks
+_muted = 0          # depth of muted() blocks
 # the table, the drops, the ids and the open frame or step: a span's
 # backward children run on autograd's thread
 _lock = threading.Lock()
@@ -77,8 +81,8 @@ _timed = {}         # device timers: name -> [(start event, end event)]
 
 def enabled() -> bool:
     """Whether spans are on: a torch.profiler is recording, or a
-    recording() block is open."""
-    return bool(_prof._is_profiler_enabled or _recording)
+    recording() block is open, and no muted() block is."""
+    return bool((_prof._is_profiler_enabled or _recording) and not _muted)
 
 
 def _stack() -> list:
@@ -164,7 +168,7 @@ def _close(s: _Span, t1: int | None = None) -> None:
 def span(name: str):
     """A context manager that records `name` while spans are on, and the
     shared no-op object otherwise."""
-    if not (_prof._is_profiler_enabled or _recording):
+    if not enabled():
         return _OFF
     return _Span(name)
 
@@ -174,7 +178,7 @@ def chain(name: str) -> None:
     `name` is the one open. Returns None, so it can be a gradient hook's
     body. Nothing while spans are off."""
     global _chained
-    if not (_prof._is_profiler_enabled or _recording):
+    if not enabled():
         return None
     if _chained is not None and _chained.name == name:
         return None
@@ -197,7 +201,7 @@ def mark_backward(name: str, *tensors) -> None:
     it; the hook returns None, so the gradient is untouched. The hook
     queues end_chain for the backward's end, so no chain outlives its
     backward (or the profiler that recorded it)."""
-    if not (_prof._is_profiler_enabled or _recording):
+    if not enabled():
         return
 
     def hook(_grad):
@@ -207,6 +211,18 @@ def mark_backward(name: str, *tensors) -> None:
     for t in tensors:
         if t.requires_grad:
             t.register_hook(hook)
+
+
+@contextlib.contextmanager
+def muted():
+    """Spans, chains, gradient hooks, device counters and timers off over
+    the block, whatever records; host counters stay on."""
+    global _muted
+    _muted += 1
+    try:
+        yield
+    finally:
+        _muted -= 1
 
 
 @contextlib.contextmanager
@@ -260,7 +276,7 @@ def count(name: str, n: int = 1) -> None:
 def count_device(name: str, value: torch.Tensor) -> None:
     """Add the device scalar `value` into the device counter `name`, while
     spans are on. The sum stays on value's device: no host wait."""
-    if not (_prof._is_profiler_enabled or _recording):
+    if not enabled():
         return
     accs = _device.setdefault(name, {})
     acc = accs.get(value.device)
@@ -299,7 +315,7 @@ def device_timer(name: str | None, device):
     elapsed ms counters() adds into the counter `name` (a host wait at
     read time, none here). The shared no-op otherwise, and where `name`
     is None."""
-    if name is None or not (_prof._is_profiler_enabled or _recording) or \
+    if name is None or not enabled() or \
             torch.device(device).type != "cuda":
         return _OFF
     return _Timer(name)

@@ -2,9 +2,10 @@
 where it never engages: the host-wait-free pieces it rests on (the RNG
 salt of an int or a 0-d tensor frame, the tonemap's white point), the
 stages read through static inputs equal to render_pixels bit for bit,
-the predicate's reason for each setting that keeps a sample eager, the
-lights built once per settings, and the benchmark's reader of the
-replay counter."""
+the predicate's reason for each setting that keeps a sample eager (and
+the train step's, without the grad rule), the ForwardRecord that the
+train step's forward reports to, the lights built once per settings,
+and the benchmark's reader of the replay counter."""
 
 import pytest
 import torch
@@ -13,8 +14,11 @@ from bench_port import harness
 from dustraytracer_tpu_torch.ops import rng, tonemap
 from dustraytracer_tpu_torch.render import film as film_mod
 from dustraytracer_tpu_torch.render import graphed
+from dustraytracer_tpu_torch.apps import optimize
 from dustraytracer_tpu_torch.render.integrator import (_resolve_fetch,
+                                                       render_pixels,
                                                        render_sample,
+                                                       reporting_to,
                                                        sample_stages)
 from dustraytracer_tpu_torch.scene.camera import make_camera
 from dustraytracer_tpu_torch.scene.scene import build_scene
@@ -98,9 +102,14 @@ def _cuda_stand_in(scene):
                           "cluster": scene.cluster})()
 
 
-@pytest.mark.parametrize("case", ["cpu", "grad", "debug", "cluster",
-                                  "gather", "alpha_test", "fields"])
-def test_eager_reason_names_each_setting(scene, case):
+CASES = ["cpu", "grad", "debug", "cluster", "gather", "alpha_test", "fields"]
+
+
+@pytest.mark.parametrize("case,reason", [
+    *(pytest.param(c, "eager_reason", id=c) for c in CASES),
+    *(pytest.param(c, "forward_reason", id=f"{c}-forward_reason")
+      for c in CASES)])
+def test_eager_reason_names_each_setting(scene, case, reason):
     st = RenderSettings(bounces=2)
     cam, lit = make_camera(**POSE), LightParams.from_settings(st)
     fake = _cuda_stand_in(scene)
@@ -109,6 +118,10 @@ def test_eager_reason_names_each_setting(scene, case):
             "gather": graphed.SYNCING["traversal=gather"],
             "alpha_test": graphed.SYNCING["alpha_test"],
             "fields": "not float32 on the device"}[case]
+    if reason == "forward_reason" and case == "grad":
+        # the grad rule is eager_reason's alone: a capture of the train
+        # step records autograd's ops too
+        want = "not float32 on the device"
     kw = {"scene": fake, "camera": cam, "lights": lit, "settings": st}
     if case == "cpu":
         kw["scene"] = scene
@@ -121,11 +134,87 @@ def test_eager_reason_names_each_setting(scene, case):
         kw["settings"] = st.replace(alpha_test=True)
     if case == "grad":
         with torch.enable_grad():
-            got = graphed.eager_reason(**kw)
+            got = getattr(graphed, reason)(**kw)
     else:
         with torch.inference_mode():
-            got = graphed.eager_reason(**kw)
+            got = getattr(graphed, reason)(**kw)
     assert got is not None and want in got
+
+
+def test_forward_record_collects_each_render_call(scene):
+    """A loss's render_pixels calls report their reason, card and
+    resolved settings to the ForwardRecord of reporting_to, through a
+    plain closure around the loss as the benchmark wraps it, and a
+    mesh's tiles one call each; a loss that renders nothing, or on two
+    devices, cannot be captured either."""
+    st = RenderSettings(bounces=2, enable_tonemap=False, enable_gamma=False)
+    cam, lit = make_camera(**POSE), LightParams.from_settings(st)
+    cpu = torch.device("cpu")
+    params = optimize.as_leaves({"mat_albedo": scene.mat_albedo})
+    target = torch.zeros((H, W, 3))
+
+    def loss(mesh=None):
+        base = optimize.make_loss_fn(scene, cam, lit, target, width=W,
+                                     height=H, settings=st, mesh=mesh)
+
+        def wrapped(p, frame):
+            return base(p, frame)
+
+        return wrapped
+
+    for mesh, calls in [(None, 1), ([cpu, cpu], 2)]:
+        rec = graphed.ForwardRecord()
+        with reporting_to(rec):
+            loss(mesh)(params, 0)
+        assert len(rec.calls) == calls
+        assert all("not CUDA" in r and d == cpu for r, d, _ in rec.calls)
+        assert rec.settings() == [st.replace(
+            shade_fetch=_resolve_fetch(scene, st))] * calls
+        assert "not CUDA" in rec.reason(cpu)
+        assert "not one card" in rec.reason(torch.device("meta"))
+    assert "no render_pixels" in graphed.ForwardRecord().reason(cpu)
+    # outside the block nothing reports
+    rec = graphed.ForwardRecord()
+    loss()(params, 0)
+    assert not rec.calls
+
+
+def test_capturing_record_keeps_the_live_lanes(scene):
+    """Inside a capturing ForwardRecord, with spans off, each material
+    fetch reports its lanes and live-lane sum: the counts that the eager
+    sample adds to drt.k4.lanes and drt.k4.live_lanes while spans are
+    on."""
+    st = RenderSettings(bounces=3)
+    cam, lit = make_camera(**POSE), LightParams.from_settings(st)
+    ids = torch.arange(W * H)
+
+    def sample():
+        return render_pixels(scene, cam, lit, 5, ids, width=W, height=H,
+                             settings=st)
+
+    profiling.clear()
+    with profiling.recording():
+        want = sample()
+        counted = profiling.counters("drt.k4.")
+    profiling.clear()
+    for capturing in (False, True):
+        rec = graphed.ForwardRecord(capturing=capturing)
+        with reporting_to(rec):
+            got = sample()
+        assert torch.equal(got, want)
+        if not capturing:
+            assert rec.n_lanes == 0 and not rec.live
+    assert rec.n_lanes == counted["drt.k4.lanes"] == st.bounces * W * H
+    assert len(rec.live) == st.bounces
+    assert int(torch.stack(rec.live).sum()) == counted["drt.k4.live_lanes"]
+    # muted spans count nothing, and report to the record
+    rec = graphed.ForwardRecord(capturing=True)
+    with profiling.recording(), profiling.muted(), reporting_to(rec):
+        sample()
+        assert profiling.span("drt.x") is profiling._OFF
+        assert not profiling.enabled()
+    assert rec.n_lanes == st.bounces * W * H
+    assert not profiling.counters("drt.k4.") and not profiling.spans()
 
 
 def test_film_on_the_cpu_stays_eager(scene):

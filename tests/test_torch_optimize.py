@@ -182,6 +182,51 @@ def test_jax_checkpoint_loads_in_port(runs, tmp_path, monkeypatch):
                                       np.asarray(nu[i]))
 
 
+def test_cpu_step_stays_eager_with_the_plain_adam(runs):
+    """On the CPU train_step runs every step eagerly and says why, and
+    make_optimizer builds the Adam it built before the card's capturable
+    one: the same hyperparameters, capturable off."""
+    tp, opt = runs["tp"], runs["opt"]
+    reason = optimize.step_reason(tp, opt, lambda p, f: None)
+    assert reason is not None and "not CUDA" in reason
+    assert not optimize._STEPS
+    plain = torch.optim.Adam(checkpoint.param_leaves(tp), lr=LR,
+                             betas=(0.9, 0.999), eps=1e-8)
+    assert [{k: v for k, v in g.items() if k != "params"}
+            for g in opt.param_groups] == \
+        [{k: v for k, v in g.items() if k != "params"}
+         for g in plain.param_groups]
+    assert opt.param_groups[0]["capturable"] is False
+    assert all(st["step"].device.type == "cpu" for st in opt.state.values())
+
+
+@pytest.mark.parametrize("capturable", [False, True])
+def test_checkpoint_puts_the_step_where_adam_keeps_it(runs, tmp_path,
+                                                      capturable):
+    """A capturable Adam keeps its step count on the leaf's device, a
+    plain one on the host; leaves on the meta device stand in for a
+    card's."""
+    path = str(tmp_path / "ckpt")
+    checkpoint.save_train_state(path, runs["tp"], runs["opt"], step=STEPS)
+    leaves = [torch.empty(t.shape, device="meta", requires_grad=True)
+              for t in checkpoint.param_leaves(runs["tp"])]
+    example = {"mat_albedo": leaves[-1],
+               "lights": LightParams(*leaves[:-1])}
+    assert all(a is b for a, b in zip(checkpoint.param_leaves(example),
+                                      leaves))
+    opt = torch.optim.Adam(leaves, lr=LR, capturable=capturable)
+    _, got, step = checkpoint.load_train_state(path, example, opt)
+    assert got is opt and step == STEPS
+    for t in leaves:
+        st = opt.state[t]
+        assert st["step"].device == (t.device if capturable
+                                     else torch.device("cpu"))
+        assert st["step"].dtype == torch.float32 and st["step"].dim() == 0
+        assert st["exp_avg"].device == st["exp_avg_sq"].device == t.device
+    if not capturable:
+        assert float(opt.state[leaves[0]]["step"]) == STEPS
+
+
 def test_missing_checkpoint_is_none(tmp_path):
     assert checkpoint.load_train_state(str(tmp_path / "none"), {}) is None
 

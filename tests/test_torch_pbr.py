@@ -19,7 +19,8 @@ from dustraytracer_tpu.scene.scene import build_scene as j_build
 from dustraytracer_tpu.scene.settings import LightParams as JLights
 from dustraytracer_tpu.scene.settings import RenderSettings as JSettings
 from dustraytracer_tpu_torch import interop
-from dustraytracer_tpu_torch.render.integrator import render_pixels
+from dustraytracer_tpu_torch.render.integrator import (_pbr_bounce,
+                                                       render_pixels)
 from dustraytracer_tpu_torch.scene.camera import make_camera
 from dustraytracer_tpu_torch.scene.scene import build_scene
 from dustraytracer_tpu_torch.scene.settings import (LightParams,
@@ -197,6 +198,37 @@ def test_metal_lane_transmission_gradient_unbiased():
                             ["mat_transmission"], (16, 16))
     np.testing.assert_allclose(tg["mat_transmission"][0], 0.0, atol=1e-7)
     np.testing.assert_allclose(jg["mat_transmission"][0], 0.0, atol=1e-7)
+
+
+def test_refraction_at_the_critical_angle_has_a_finite_gradient():
+    """A glass lane whose k = 1 - eta^2 (1 - cos^2) rounds to exactly 0 (a
+    ray leaving the glass at the critical angle, common in float32) takes
+    no sqrt'(0) = inf into d/d(ior): its gradient stays finite, as the
+    TIR lanes' does, and its direction is sqrt(max(k, 0))'s."""
+    ior = torch.tensor([1.9690980911254883, 1.5], requires_grad=True)
+    direction = torch.tensor([[0.5078462362289429, -0.8614465594291687,
+                               -2.883442675738479e-07],
+                              [0.3, -0.9, 0.1]])
+    nrm = torch.tensor([[0.0, 1.0, 0.0]] * 2)
+    d_n = direction / torch.linalg.vector_norm(direction, dim=-1,
+                                               keepdim=True)
+    cos_in = -(d_n * nrm).sum(dim=-1)
+    k = 1.0 - ior.detach() ** 2 * (1.0 - cos_in * cos_in)
+    assert k[0] == 0.0 and k[1] > 0.0  # lane 0 sits on the boundary
+    n = 2
+    sh = {"normal": nrm, "front_face": torch.tensor([False, False]),
+          "world_position": torch.zeros((n, 3))}
+    matd = {"metallic": torch.zeros(n), "roughness": torch.zeros(n),
+            "transmission": torch.ones(n), "ior": ior}
+    for seed in range(8):  # both sides of the Fresnel coin
+        rng = torch.full((n,), 12345 + 7919 * seed, dtype=torch.int64)
+        out = _pbr_bounce(sh, matd, direction, torch.zeros((n, 3)),
+                          nrm.clone(), torch.zeros((n, 3)),
+                          torch.ones((n, 3)), torch.ones(n, dtype=bool),
+                          rng)
+        grad, = torch.autograd.grad((out[0].sum() + out[2].sum()), ior)
+        assert torch.isfinite(grad).all(), (seed, grad)
+    assert torch.isfinite(out[0]).all()
 
 
 TRI_POSE = dict(position=(0, 2, 6), look_at=(0, 1, 0), vfov_deg=50.0)
